@@ -1,0 +1,1 @@
+"""Tools of the port: the weight bridge from the JAX package."""
