@@ -7,19 +7,23 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. device: CUDA must be present; prints the card's name and power limit;
      TF32 off for matmuls and cuDNN (cuDNN convs default to TF32, which
      would blur the plain versions the kernels are held against);
-  2. build both hand-written kernels from csrc/ (one nvcc each, in
+  2. build the three hand-written kernels from csrc/ (one nvcc each, in
      parallel) and print the build seconds and ptxas's report;
-  3. each kernel against its plain PyTorch version on the card, in bf16,
-     at the main path's shapes (and, for the residual stack, at blocks
-     shorter than one tile): max-abs and rel-RMS error against the bound
-     rel-RMS <= 1e-2 (for the residual stack also over the first tile
-     alone), kernel / plain / library times and the card's bound for the
-     same work;
-  4. the main path at full width with seeded random weights: three
+  3. each kernel against its plain PyTorch version on the card at the main
+     path's shapes (and, for the residual stack, at blocks shorter than one
+     tile): joint attention with bf16 and with int8 static K/V, the
+     residual stack, and the W8A8 matmul (fp32 output within 1e-5 of the
+     plain version, bf16 output rel-RMS); max-abs and rel-RMS error
+     against the bound rel-RMS <= 1e-2 (for the residual stack also over
+     the first tile alone), kernel / plain / library times and the card's
+     bound for the same work;
+  4. the main path at full width with seeded random weights: four
      requests (no speaker; tests/data/voice.wav as speaker; a two-chunk
-     text with that voice) through sample_pipeline /
-     sample_pipeline_chunked, checking the audio and the kernels' launch
-     counts, with stage times and RTF;
+     text with that voice; and that voice again through the int8 serving
+     modes, the W8A8 DiT from serve.models.load_models under
+     ECHO_DIT_QUANT=int8 with kv_quant=True) through sample_pipeline /
+     sample_pipeline_chunked, checking the audio and every kernel's launch
+     count, with stage times and RTF;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 Imports nothing of JAX or of echo_tts_tpu.
 """
@@ -38,10 +42,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores
-# and HBM3 bandwidth.
+# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 and int8
+# tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+INT8_FP32_BOUND = 1e-5  # W8A8 fp32 output vs plain (tests/test_quant.py:68)
 REL_RMS_BOUND = 1e-2   # bf16 kernel vs plain (PARITY.md: bf16 vs fp32 1.05e-2)
 
 VOICE = os.path.join(REPO, "tests", "data", "voice.wav")
@@ -87,8 +93,10 @@ def errors(got, want) -> tuple:
     return max_abs, rel_rms
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """(ms, what bounds it): the larger of ops at the operand type's peak
+    rate and bytes at the memory rate."""
+    t_ops = ops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -131,9 +139,12 @@ def phase_build():
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attention_case(gb: int, s: int, t: int, seed: int):
+def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
+    """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
+    quantize_kv_int8 of the same bf16 K/V) and passes their scales."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
+    from echo_tts_torch.ops import quant
     h, dh, b = 16, 128, 1
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -154,21 +165,28 @@ def attention_case(gb: int, s: int, t: int, seed: int):
     mask = torch.stack(rows)          # CFG branches blank whole segments
     col_scale = torch.where(spk, 1.5, 1.0).float()
     sm = dh ** -0.5
+    kw = dict(sm_scale=sm)
+    kv_bytes = 2                      # per static K/V element
+    if kv8:
+        qkv = quant.quantize_kv_int8(kt, vt)
+        kw["kv_scales"] = (qkv["ks"], qkv["vs"])
+        kt8, vt8 = qkv["k8"], qkv["v8"]
+        args = (q, ks, vs, kt8, vt8, mask, col_scale)
+        # the library yardstick below reads the dequantized K/V
+        kt, vt = quant.dequantize_kv(qkv)
+        kv_bytes = 1
+    else:
+        args = (q, ks, vs, kt, vt, mask, col_scale)
 
-    ja.fused_joint_attention.launches = 0
-    out = ja.fused_joint_attention(q, ks, vs, kt, vt, mask, col_scale,
-                                   sm_scale=sm)
+    out = ja.fused_joint_attention(*args, **kw)
     torch.cuda.synchronize()
-    ref = ja.joint_attention_plain(q, ks, vs, kt, vt, mask, col_scale,
-                                   sm_scale=sm)
+    ref = ja.joint_attention_plain(*args, **kw)
     max_abs, rel = errors(out, ref)
+    name = f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} T={t}"
     if rel > REL_RMS_BOUND:
-        raise AssertionError(f"joint attention GB={gb} S={s} T={t}: rel-RMS "
-                             f"{rel:.3e} > {REL_RMS_BOUND}")
-    kernel_ms = timed(lambda: ja.fused_joint_attention(
-        q, ks, vs, kt, vt, mask, col_scale, sm_scale=sm), 50)
-    plain_ms = timed(lambda: ja.joint_attention_plain(
-        q, ks, vs, kt, vt, mask, col_scale, sm_scale=sm), 5)
+        raise AssertionError(f"{name}: rel-RMS {rel:.3e} > {REL_RMS_BOUND}")
+    kernel_ms = timed(lambda: ja.fused_joint_attention(*args, **kw), 50)
+    plain_ms = timed(lambda: ja.joint_attention_plain(*args, **kw), 5)
     # yardstick only: one library call on [self | static] with K and V
     # pre-scaled and the bias as an additive mask; the port never calls it
     import torch.nn.functional as F
@@ -183,10 +201,13 @@ def attention_case(gb: int, s: int, t: int, seed: int):
     library_ms = timed(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=am, scale=sm), 50)
     flops = 4.0 * gb * h * s * (s + t) * dh
-    nbytes = 4 * gb * s * h * dh * 2 + 2 * b * t * h * dh * 2 + gb * t + t * 4
+    # q, k_self, v_self, out bf16; static K/V; their int8 scales; mask;
+    # column scale
+    nbytes = (4 * gb * s * h * dh * 2 + 2 * b * t * h * dh * kv_bytes
+              + (2 * b * t * h * 4 if kv8 else 0) + gb * t + t * 4)
     b_ms, b_by = bound(flops, nbytes)
-    ja.fused_joint_attention.launches = 0
-    res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}", max_abs_err=max_abs,
+    res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}"
+               + (" int8 K/V" if kv8 else ""), max_abs_err=max_abs,
                rel_rms=rel, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
     log(f"  attention {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
@@ -217,7 +238,6 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     args = (w1, b1, a1, w2, b2, a2)
     weights = rs.ResStackWeights(*args)
 
-    rs.fused_res_stack.launches = 0
     out = rs.fused_res_stack(x, weights, approx_snake=approx)
     torch.cuda.synchronize()
     ref = rs.res_stack_plain(x, *args, approx_snake=approx)
@@ -239,7 +259,6 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     flops = 3 * 2.0 * 8 * c * c * length
     nbytes = 2 * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
     b_ms, b_by = bound(flops, nbytes)
-    rs.fused_res_stack.launches = 0
     res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}",
                max_abs_err=max_abs, rel_rms=max(rel, rel_head), ms=kernel_ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -249,11 +268,68 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     return res
 
 
+def int8_matmul_case(m: int, k: int, n: int, seed: int):
+    """Kernel C at one (M, K, N) of the W8A8 DiT: x bf16, the weight
+    quantized by the port's quantize_weight_int8."""
+    import torch
+    from echo_tts_torch.ops import int8_matmul as im
+    from echo_tts_torch.ops import quant
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=g, device=dev) * k ** -0.5).to(torch.bfloat16)
+    w8, ws = quant.quantize_weight_int8(w)
+
+    out32 = im.int8_matmul_fused(x, w8, ws, torch.float32)
+    torch.cuda.synchronize()
+    max_abs32, _ = errors(out32, im.int8_matmul_plain(x, w8, ws, torch.float32))
+    out = im.int8_matmul_fused(x, w8, ws)
+    torch.cuda.synchronize()
+    max_abs, rel = errors(out, im.int8_matmul_plain(x, w8, ws))
+    name = f"int8_matmul M={m} K={k} N={n}"
+    if max_abs32 > INT8_FP32_BOUND or rel > REL_RMS_BOUND:
+        raise AssertionError(f"{name}: fp32 max-abs {max_abs32:.3e} (bound "
+                             f"{INT8_FP32_BOUND}), bf16 rel-RMS {rel:.3e} "
+                             f"(bound {REL_RMS_BOUND})")
+    _, rel_bf16 = errors(out, x @ w.t())      # the mode's own error, shown
+    kernel_ms = timed(lambda: im.int8_matmul_fused(x, w8, ws), 50)
+    plain_ms = timed(lambda: im.int8_matmul_plain(x, w8, ws), 5)
+    # yardsticks only, never called by the port: the library's int8 product
+    # alone on pre-quantized operands, and the bf16 product it replaces
+    xq = im.quantize_last(x, 127.0)[0].to(torch.int8)
+    library_ms = timed(lambda: torch._int_mm(xq, w8.t()), 50)
+    bf16_ms = timed(lambda: torch.matmul(x, w.t()), 50)
+    # x bf16, w int8, w_scale fp32 read once; out bf16 written once
+    nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
+    b_ms, b_by = bound(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
+    res = dict(shape=f"M={m} K={k} N={n}", max_abs_err=max_abs32,
+               max_abs_err_bf16=max_abs, rel_rms=rel, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               bf16_matmul_ms=bf16_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  {name}: fp32 max_abs {max_abs32:.3e} (bound {INT8_FP32_BOUND}) "
+        f"bf16 max_abs {max_abs:.3e} rel_rms {rel:.3e} (bound "
+        f"{REL_RMS_BOUND}); W8A8 vs bf16 matmul rel_rms {rel_bf16:.3e}; "
+        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} _int_mm_ms "
+        f"{library_ms:.4f} bf16_matmul_ms {bf16_ms:.4f} bound_ms {b_ms:.4f} "
+        f"({b_by})")
+    return res
+
+
 def phase_kernels():
-    log("phase 3: kernels vs plain (bf16)")
+    log("phase 3: kernels vs plain")
     att = [attention_case(gb, 640, t, seed=i) for i, (gb, t) in enumerate(
         [(3, 778), (1, 778), (3, 2368), (1, 2368)])]
     att.append(attention_case(3, 1280, 778, seed=9))
+    # int8 static K/V at request (d)'s shapes (GB=3 and 1, T=778) and at
+    # the longest static K/V
+    att8 = [attention_case(gb, 640, t, seed=30 + i, kv8=True)
+            for i, (gb, t) in enumerate([(3, 778), (1, 778), (3, 2368)])]
+    # every (M, K, N) the W8A8 DiT gives kernel C: M = 1920 on CFG steps
+    # (GB=3), 640 else; wq/wk/wv/gate/wo (2048, 2048), w1/w3 (2048, 5888),
+    # w2 (5888, 2048)
+    mm = [int8_matmul_case(m, k, n, seed=40 + i) for i, (m, k, n) in enumerate(
+        [(1920, 2048, 5888), (1920, 2048, 2048), (1920, 5888, 2048),
+         (640, 2048, 5888), (640, 2048, 2048), (640, 5888, 2048)])]
     # every (C, L, snake) the main path gives the kernel for 640 latents:
     # decoder blocks 1-3 with the serving decoder's sin2_poly, speaker
     # encoder blocks 0-2 with exact sin; the two decoder widths' other
@@ -264,7 +340,7 @@ def phase_kernels():
                 (64, 1310720, False), (128, 655360, False),
                 (256, 163840, False), (96, 1310720, False),
                 (384, 163840, False), (96, 300, True), (384, 40, False)])]
-    return att, rst
+    return att, att8, rst, mm
 
 
 # ---------------------------------------------------------------------------
@@ -275,10 +351,14 @@ def phase_main_path():
     import torch
     from echo_tts_torch import SAMPLER_DEFAULTS
     from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.ops import quant
+    from echo_tts_torch.ops.int8_matmul import int8_matmul_fused
     from echo_tts_torch.ops.joint_attention import fused_joint_attention
     from echo_tts_torch.ops.res_stack import fused_res_stack
     from echo_tts_torch.pipeline import audio_io, pipeline as pl
     from echo_tts_torch.pipeline.text import chunk_text, get_text_input_ids_and_mask
+    from echo_tts_torch.sampler.euler import make_cfg_branch_masks
+    from echo_tts_torch.serve import models as serve_models
 
     log("phase 4: main path (full width, seeded random weights)")
     t0 = time.perf_counter()
@@ -287,9 +367,30 @@ def phase_main_path():
     log(f"  random_models: {time.perf_counter() - t0:.1f} s, DiT "
         f"{sum(p.numel() for p in models.dit.parameters()) / 1e9:.3f} B params, "
         f"codec {sum(p.numel() for p in models.dac.parameters()) / 1e9:.3f} B")
+    # request (d)'s bundle through the serving loader, in the int8 mode;
+    # the same seed as `models`, so the two DiTs hold the same weights
+    t0 = time.perf_counter()
+    saved_mode = os.environ.get("ECHO_DIT_QUANT")
+    os.environ["ECHO_DIT_QUANT"] = "int8"
+    try:
+        serve_models.clear_models()
+        qmodels = serve_models.load_models(None, allow_random=True)
+        if serve_models.served_quant_mode() != "int8":
+            raise AssertionError("load_models did not serve the W8A8 DiT")
+    finally:
+        if saved_mode is None:
+            os.environ.pop("ECHO_DIT_QUANT")
+        else:
+            os.environ["ECHO_DIT_QUANT"] = saved_mode
+    torch.cuda.synchronize()
+    log(f"  serve.models.load_models(ECHO_DIT_QUANT=int8): "
+        f"{time.perf_counter() - t0:.1f} s")
     cfg = models.dit_cfg
     n_layers, n_steps = cfg.num_layers, SAMPLER_DEFAULTS["num_steps"]
+    n_int8_linears = len(quant.DIT_BLOCK_QUANT_KEYS)
     sample_fn = functools.partial(pl.euler_sample_fn, **SAMPLER_DEFAULTS)
+    sample_fn_q = functools.partial(pl.euler_sample_fn, kv_quant=True,
+                                    **SAMPLER_DEFAULTS)
     voice = audio_io.load_audio(VOICE)
     spl = models.dac_cfg.frame_length
     n_voice_chunks = math.ceil(voice.shape[1] / (640 * spl))
@@ -309,53 +410,61 @@ def phase_main_path():
     stage = {"sampler": [], "decode": []}
     decode = pl.ae_decode
 
-    def timed_sample_fn(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = sample_fn(*a)
-        torch.cuda.synchronize()
-        stage["sampler"].append((time.perf_counter() - t) * 1e3)
-        return out
+    def timing(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            stage[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
 
-    def timed_decode(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = decode(*a)
-        torch.cuda.synchronize()
-        stage["decode"].append((time.perf_counter() - t) * 1e3)
-        return out
-
+    timed_sample_fn = timing(sample_fn, "sampler")
+    timed_sample_fn_q = timing(sample_fn_q, "sampler")
     pl.dsp.crop_audio_to_flattening_point = recording_crop
-    pl.ae_decode = timed_decode
+    pl.ae_decode = timing(decode, "decode")
+    # (name, run, sampler calls, encoded speaker chunks, int8 modes)
     requests = [
         ("a: sample_pipeline, no speaker", lambda: pl.sample_pipeline(
-            models, timed_sample_fn, TEXT, None, 0), 1, 0),
+            models, timed_sample_fn, TEXT, None, 0), 1, 0, False),
         ("b: sample_pipeline, voice.wav", lambda: pl.sample_pipeline(
-            models, timed_sample_fn, TEXT, voice, 1), 1, n_voice_chunks),
+            models, timed_sample_fn, TEXT, voice, 1), 1, n_voice_chunks, False),
         ("c: sample_pipeline_chunked, 2 chunks, voice.wav",
          lambda: pl.sample_pipeline_chunked(
-             models, timed_sample_fn, LONG_TEXT, voice, 2), 2, n_voice_chunks),
+             models, timed_sample_fn, LONG_TEXT, voice, 2), 2, n_voice_chunks,
+         False),
+        ("d: sample_pipeline, voice.wav, W8A8 DiT + int8 K/V",
+         lambda: pl.sample_pipeline(
+             qmodels, timed_sample_fn_q, TEXT, voice, 1), 1, n_voice_chunks,
+         True),
     ]
-    launches = {"joint_attention": 0, "res_stack": 0}
+    counters = {"joint_attention": (fused_joint_attention, "launches"),
+                "joint_attention_kv8": (fused_joint_attention, "launches_kv8"),
+                "int8_matmul": (int8_matmul_fused, "launches"),
+                "res_stack": (fused_res_stack, "launches")}
+    launches = dict.fromkeys(counters, 0)
+    request_stats = {}
     try:
-        for name, run, n_samples, n_enc in requests:
-            fused_joint_attention.launches = 0
-            fused_res_stack.launches = 0
+        for name, run, n_samples, n_enc, int8_modes in requests:
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
             n_dec = len(decoded)
             torch.cuda.synchronize()
             t = time.perf_counter()
             audio, _ = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            attn, rst = fused_joint_attention.launches, fused_res_stack.launches
-            launches["joint_attention"] += attn
-            launches["res_stack"] += rst
-            want_attn = n_layers * n_steps * n_samples
-            want_rs = 3 * n_samples + 3 * n_enc
-            if attn != want_attn or rst != want_rs:
-                raise AssertionError(
-                    f"{name}: launches attention {attn} (want {want_attn}), "
-                    f"res_stack {rst} (want {want_rs})")
+            got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+            for k, v in got.items():
+                launches[k] += v
+            attn = n_layers * n_steps * n_samples
+            want = {"joint_attention": 0 if int8_modes else attn,
+                    "joint_attention_kv8": attn if int8_modes else 0,
+                    "int8_matmul": n_int8_linears * attn if int8_modes else 0,
+                    "res_stack": 3 * n_samples + 3 * n_enc}
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, want {want}")
             for shape, finite, peak in decoded[n_dec:]:
                 if shape != (1, 640 * spl) or not finite or peak <= 1e-4:
                     raise AssertionError(f"{name}: decoded {shape} finite "
@@ -363,9 +472,13 @@ def phase_main_path():
             if audio.ndim != 2 or audio.shape[1] == 0 or not np.isfinite(audio).all():
                 raise AssertionError(f"{name}: audio {audio.shape}")
             secs = audio.shape[1] / models.dac_cfg.sample_rate
+            request_stats[name[0]] = dict(
+                wall_ms=wall * 1e3, rtf=secs / wall,
+                sampler_ms=stage["sampler"][-n_samples:],
+                decode_ms=stage["decode"][-n_samples:])
             log(f"  request {name}: {wall * 1e3:.1f} ms wall, {secs:.2f} s "
-                f"audio, RTF {secs / wall:.3f}x realtime; launches attention "
-                f"{attn} res_stack {rst}; sampler_ms "
+                f"audio, RTF {secs / wall:.3f}x realtime; launches {got}; "
+                f"sampler_ms "
                 f"{[round(v, 1) for v in stage['sampler'][-n_samples:]]} "
                 f"decode_ms {[round(v, 1) for v in stage['decode'][-n_samples:]]}")
     finally:
@@ -378,6 +491,7 @@ def phase_main_path():
     dev = models.device
     ids_t, tmask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(tmask).to(dev)
     lat_t = torch.from_numpy(lat).to(dev).to(models.dtype)
+    smask_t = torch.from_numpy(mask).to(dev)
 
     def prefill():
         with torch.inference_mode():
@@ -386,10 +500,41 @@ def phase_main_path():
             return tdit.concat_static_kv(kv_t, kv_s)
 
     prefill_ms = timed(prefill, 3)
-    log(f"  stage ms (request b shapes): prefill {prefill_ms:.1f}, sampler "
-        f"(incl. prefill) {stage['sampler'][1]:.1f}, decode "
-        f"{stage['decode'][1]:.1f}")
+    for key in ("b", "d"):
+        log(f"  stage ms (request {key}): prefill (bf16 DiT) {prefill_ms:.1f}, "
+            f"sampler (incl. prefill) {request_stats[key]['sampler_ms'][0]:.1f}, "
+            f"decode {request_stats[key]['decode_ms'][0]:.1f}")
+
+    # information only, not a gate: one full-width CFG forward (GB=3) of the
+    # W8A8 DiT over int8 K/V against the bf16 DiT over bf16 K/V, on the
+    # same inputs and weights
+    with torch.inference_mode():
+        kv, spk_cols = prefill()
+        mask_cfg, _ = make_cfg_branch_masks(cfg, tmask_t, smask_t)
+        g = torch.Generator(device=dev).manual_seed(50)
+        x = torch.randn((3, 640, cfg.latent_size), generator=g,
+                        device=dev).to(models.dtype)
+        t = torch.full((3,), 0.7, device=dev).to(models.dtype)
+        ref = tdit.dit_forward_static(models.dit, x, t, kv, spk_cols, mask_cfg)
+        got = tdit.dit_forward_static(qmodels.dit, x, t,
+                                      quant.quantize_kv_int8(*kv), spk_cols,
+                                      mask_cfg)
+        _, rel = errors(got, ref)
+    log(f"  W8A8 + int8 K/V vs bf16, one dit_forward_static at GB=3 S=640 "
+        f"T={kv[0].shape[2]}: rel-RMS {rel:.3e} (information only)")
     return launches
+
+
+def kernel_entry(name, source, replaces, cases, main, launches, **extra):
+    """One entry of the {"kernels": [...]} line: the main case's numbers,
+    and the worst error over all cases."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in cases),
+                rel_rms=max(r["rel_rms"] for r in cases),
+                ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"], **extra)
 
 
 def main() -> int:
@@ -397,33 +542,34 @@ def main() -> int:
     import torch
     phase_device()
     phase_build()
-    att, rst = phase_kernels()
+    att, att8, rst, mm = phase_kernels()
     launches = phase_main_path()
-    main_att = att[0]                 # GB=3, S=640, T=778: request b's shape
-    main_rs = rst[0]                  # C=96 with the serving decoder's snake
     kernels = [
-        dict(name="joint_attention", route="cuda",
-             source="echo_tts_torch/csrc/joint_attention.cu",
-             replaces="echo_tts_tpu/ops/pallas/joint_attention.py:53 "
-                      "(_kernel) and :105 (_flash_kernel)",
-             launches=launches["joint_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in att),
-             rel_rms=max(r["rel_rms"] for r in att),
-             ms=main_att["ms"], kernel_ms=main_att["ms"],
-             plain_ms=main_att["plain_ms"], bound_ms=main_att["bound_ms"],
-             bound_by=main_att["bound_by"], library_ms=main_att["library_ms"],
-             shape=main_att["shape"]),
-        dict(name="res_stack", route="cuda",
-             source="echo_tts_torch/csrc/res_stack.cu",
-             replaces="echo_tts_tpu/ops/pallas/res_stack.py:60 "
-                      "(_res_stack_kernel)",
-             launches=launches["res_stack"],
-             max_abs_err=max(r["max_abs_err"] for r in rst),
-             rel_rms=max(r["rel_rms"] for r in rst),
-             ms=main_rs["ms"], kernel_ms=main_rs["ms"],
-             plain_ms=main_rs["plain_ms"], bound_ms=main_rs["bound_ms"],
-             bound_by=main_rs["bound_by"], library_ms=None,
-             shape=main_rs["shape"]),
+        # GB=3, S=640, T=778: request b's shape; the int8 K/V form at
+        # request d's, with its own numbers and launch count
+        kernel_entry(
+            "joint_attention", "echo_tts_torch/csrc/joint_attention.cu",
+            "echo_tts_tpu/ops/pallas/joint_attention.py:53 (_kernel) and "
+            ":105 (_flash_kernel)", att + att8, att[0],
+            launches["joint_attention"] + launches["joint_attention_kv8"],
+            launches_bf16=launches["joint_attention"],
+            launches_kv8=launches["joint_attention_kv8"],
+            kv8={k: att8[0][k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by",
+                                         "max_abs_err", "rel_rms")}),
+        # C=96 with the serving decoder's snake
+        kernel_entry(
+            "res_stack", "echo_tts_torch/csrc/res_stack.cu",
+            "echo_tts_tpu/ops/pallas/res_stack.py:60 (_res_stack_kernel)",
+            rst, rst[0], launches["res_stack"]),
+        # M=1920 (a CFG step), w1/w3 (2048 -> 5888); max_abs_err is the
+        # fp32 output's
+        kernel_entry(
+            "int8_matmul", "echo_tts_torch/csrc/int8_matmul.cu",
+            "echo_tts_tpu/ops/pallas/int8_matmul.py:44 (_kernel)", mm, mm[0],
+            launches["int8_matmul"],
+            max_abs_err_bf16=max(r["max_abs_err_bf16"] for r in mm),
+            bf16_matmul_ms=mm[0]["bf16_matmul_ms"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

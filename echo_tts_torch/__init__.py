@@ -4,10 +4,12 @@ Layer map (each module mirrors its namesake in echo_tts_tpu/):
 
   models/    EchoDiT + text/speaker encoders, Fish S1-DAC codec
   ops/       plain PyTorch ops; wrappers of the hand-written CUDA kernels
-             (csrc/joint_attention.cu, csrc/res_stack.cu) with their plain
-             versions and launch counters
+             (csrc/joint_attention.cu, csrc/res_stack.cu,
+             csrc/int8_matmul.cu) with their plain versions and launch
+             counters; the int8 quantization of the DiT and static K/V
   sampler/   Euler CFG sampler
   pipeline/  host text stack, DSP, audio IO, text->audio orchestration
+  serve/     the model cache and its quant mode (ECHO_DIT_QUANT)
   tools/     weight bridge from the JAX package's parameter trees; the
              device-time profile of the main path
 

@@ -33,6 +33,24 @@
 // take 11.3 us at 3.35 TB/s).  This simple kernel (mma.sync, no
 // TMA/wgmma, K/V reloaded per q-tile and per CFG branch, no overlap of
 // loads with math) is far from that bound.
+//
+// int8 static K/V (a second instance, KV8 = true; entry point
+// echo_joint_attention_kv8): the counterpart of the Pallas kernels' int8
+// form, `fused_joint_attention(..., kv_scales=(ks, vs))`
+// (joint_attention.py:437-521; the casts at :68-69 and :168-169).  Static
+// K/V arrive int8 (B, T, H, D) with fp32 dequant scales ks, vs (B, T, H).
+// Each 16-byte row chunk is loaded as int8 and converted to bf16 in
+// shared memory (exact: |v| <= 127), so the static K/V cross HBM at half
+// the width.  The per-column scales are one fp32 product each,
+// col_scale[t] * ks[b, t, h] on the logits and col_scale[t] * vs[b, t, h]
+// on the weights, after they joined the denominator and before the cast
+// to bf16; without a column scale they are ks and vs themselves.  At the
+// main-path shape (GB=3, S=640, T=778) the tensor-core rate still bounds
+// it (the same 22.3 GFLOP; the int8 K/V save 6.4 MB of the ~38 MB), so
+// this simple form does nothing more about it than the bf16 one: the
+// conversion costs a few ALU instructions per element per q-tile, and the
+// scales are read per tile as the column scale is.  The bf16 instance is
+// compiled from the same source with KV8 = false and is unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,15 +104,43 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sm,
   }
 }
 
+// The same rows of an int8 (rows, D) matrix, converted to bf16 (exact)
+// as they land in shared memory; rows >= n_rows are zero.
 template <int D>
+__device__ __forceinline__ void load_tile_i8(__nv_bfloat16* sm,
+                                             const int8_t* g, long long rs,
+                                             int row0, int n_rows) {
+  constexpr int PER_ROW = D / 16;
+  for (int i = threadIdx.x; i < BK * PER_ROW; i += NTHREADS) {
+    const int r = i / PER_ROW;
+    const int c = (i % PER_ROW) * 16;
+    const int gr = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gr < n_rows) v = *reinterpret_cast<const uint4*>(g + gr * rs + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    uint32_t p[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      p[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);
+    __nv_bfloat16* dst = sm + r * (D + PAD) + c;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(p[0], p[1], p[2], p[3]);
+    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
+// KV8: static K/V are int8 and k_deq/v_deq hold their (B, T, H) fp32
+// scales; otherwise static K/V are bf16 and k_deq/v_deq are unused.
+template <int D, bool KV8>
 __global__ void __launch_bounds__(NTHREADS)
 joint_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_self,
                        const __nv_bfloat16* __restrict__ v_self,
-                       const __nv_bfloat16* __restrict__ k_st,
-                       const __nv_bfloat16* __restrict__ v_st,
+                       const void* __restrict__ k_st,
+                       const void* __restrict__ v_st,
                        const bool* __restrict__ mask,        // (GB, T)
                        const float* __restrict__ col_scale,  // (T,) or null
+                       const float* __restrict__ k_deq,      // (B, T, H)
+                       const float* __restrict__ v_deq,      // (B, T, H)
                        __nv_bfloat16* __restrict__ out,
                        int S, int B, int T,
                        long long sb, long long ss, long long sh,
@@ -104,6 +150,8 @@ joint_attention_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
   __shared__ __align__(16) __nv_bfloat16 Vs[BK * LD];
   __shared__ float col_s[BK], col_b[BK];
+  // the V-side column scale; the bf16 form uses col_s on both sides
+  __shared__ float col_v[KV8 ? BK : 1];
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -149,9 +197,26 @@ joint_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (is_self) {
       load_tile<D>(Ks, k_self + self_off, ss, col0, S);
       load_tile<D>(Vs, v_self + self_off, ss, col0, S);
+    } else if constexpr (KV8) {
+      load_tile_i8<D>(Ks, static_cast<const int8_t*>(k_st) + st_off, ts,
+                      col0, T);
+      load_tile_i8<D>(Vs, static_cast<const int8_t*>(v_st) + st_off, ts,
+                      col0, T);
+      const int H = gridDim.y;
+      for (int c = threadIdx.x; c < BK; c += NTHREADS) {
+        const int col = col0 + c;
+        const bool ok = col < T;
+        const long long si = ((long long)b * T + col) * H + h;
+        const float cs = ok && col_scale ? col_scale[col] : 1.f;
+        col_b[c] = ok && mask[(long long)gb * T + col] ? 0.f : MASK_VALUE;
+        col_s[c] = ok ? cs * k_deq[si] : 0.f;
+        col_v[c] = ok ? cs * v_deq[si] : 0.f;
+      }
     } else {
-      load_tile<D>(Ks, k_st + st_off, ts, col0, T);
-      load_tile<D>(Vs, v_st + st_off, ts, col0, T);
+      load_tile<D>(Ks, static_cast<const __nv_bfloat16*>(k_st) + st_off, ts,
+                   col0, T);
+      load_tile<D>(Vs, static_cast<const __nv_bfloat16*>(v_st) + st_off, ts,
+                   col0, T);
       for (int c = threadIdx.x; c < BK; c += NTHREADS) {
         const int col = col0 + c;
         const bool ok = col < T;
@@ -206,7 +271,8 @@ joint_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const float e = expf(s[n][i] - m[i >> 1]);
         rsum[i >> 1] += e;
         // the column scale multiplies e after e joined the denominator
-        s[n][i] = is_self ? e : e * col_s[n * 8 + 2 * t + (i & 1)];
+        const int cl = n * 8 + 2 * t + (i & 1);
+        s[n][i] = is_self ? e : e * (KV8 ? col_v[cl] : col_s[cl]);
       }
     }
 #pragma unroll
@@ -260,30 +326,53 @@ joint_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool KV8>
+int launch(const void* q, const void* k_self, const void* v_self,
+           const void* k_st, const void* v_st, const void* mask,
+           const void* col_scale, const void* k_deq, const void* v_deq,
+           void* out, int GB, int S, int H, int D, int B, int T,
+           long long sb, long long ss, long long sh, long long tb,
+           long long ts, long long th, float sm_scale, void* stream) {
+  if (D != 128) return (int)cudaErrorInvalidValue;  // the DiT's head dim
+  const dim3 grid((S + BQ - 1) / BQ, H, GB);
+  joint_attention_kernel<128, KV8>
+      <<<grid, NTHREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_self,
+          (const __nv_bfloat16*)v_self, k_st, v_st, (const bool*)mask,
+          (const float*)col_scale, (const float*)k_deq, (const float*)v_deq,
+          (__nv_bfloat16*)out, S, B, T, sb, ss, sh, tb, ts, th, sm_scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point, loaded with ctypes (echo_tts_torch/ops/joint_attention.py).
+// C entry points, loaded with ctypes (echo_tts_torch/ops/joint_attention.py).
 // q/k_self/v_self/out share the (GB, S, H, D) strides (sb, ss, sh); the
 // static K/V share (B, T, H, D) strides (tb, ts, th); all in elements with
 // the head dimension contiguous.  mask is (GB, T) bool, contiguous;
-// col_scale is (T,) fp32 or null.  Returns cudaGetLastError() after launch.
+// col_scale is (T,) fp32 or null.  Each returns cudaGetLastError() after
+// the launch.
 extern "C" int echo_joint_attention_bf16(
     const void* q, const void* k_self, const void* v_self, const void* k_st,
     const void* v_st, const void* mask, const void* col_scale, void* out,
     int GB, int S, int H, int D, int B, int T,
     long long sb, long long ss, long long sh, long long tb, long long ts,
     long long th, float sm_scale, void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, H, GB);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define ECHO_LAUNCH(DIM)                                                    \
-  joint_attention_kernel<DIM><<<grid, NTHREADS, 0, st>>>(                   \
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_self,                \
-      (const __nv_bfloat16*)v_self, (const __nv_bfloat16*)k_st,             \
-      (const __nv_bfloat16*)v_st, (const bool*)mask,                        \
-      (const float*)col_scale, (__nv_bfloat16*)out, S, B, T, sb, ss, sh,    \
-      tb, ts, th, sm_scale)
-  if (D != 128) return (int)cudaErrorInvalidValue;  // the DiT's head dim
-  ECHO_LAUNCH(128);
-#undef ECHO_LAUNCH
-  return (int)cudaGetLastError();
+  return launch<false>(q, k_self, v_self, k_st, v_st, mask, col_scale,
+                       nullptr, nullptr, out, GB, S, H, D, B, T, sb, ss, sh,
+                       tb, ts, th, sm_scale, stream);
+}
+
+// Static K/V int8, with their dequant scales k_deq/v_deq (B, T, H) fp32,
+// contiguous.
+extern "C" int echo_joint_attention_kv8(
+    const void* q, const void* k_self, const void* v_self, const void* k_st,
+    const void* v_st, const void* mask, const void* col_scale,
+    const void* k_deq, const void* v_deq, void* out,
+    int GB, int S, int H, int D, int B, int T,
+    long long sb, long long ss, long long sh, long long tb, long long ts,
+    long long th, float sm_scale, void* stream) {
+  return launch<true>(q, k_self, v_self, k_st, v_st, mask, col_scale, k_deq,
+                      v_deq, out, GB, S, H, D, B, T, sb, ss, sh, tb, ts, th,
+                      sm_scale, stream);
 }

@@ -17,7 +17,7 @@ here so checkpoints load, but its functions are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +29,7 @@ from ..ops.attention import sdpa
 from ..ops.embeddings import get_timestep_embedding
 from ..ops.joint_attention import fused_joint_attention
 from ..ops.norms import LowRankAdaLN, low_rank_adaln, rms_norm
+from ..ops.quant import kv_is_quantized
 from ..ops.rope import (apply_rotary_emb, apply_rotary_emb_half_heads,
                         freqs_tensor)
 
@@ -275,10 +276,13 @@ def _joint_attention_static(p: JointAttention, x: torch.Tensor,
                             static_mask: torch.Tensor,
                             col_scale: torch.Tensor, freqs_q: torch.Tensor,
                             k_static: torch.Tensor, v_static: torch.Tensor, *,
-                            num_heads: int, eps: float) -> torch.Tensor:
+                            num_heads: int, eps: float,
+                            kv_scales=None) -> torch.Tensor:
     """Joint attention over [self | pre-concatenated static KV]
     (dit.py:596-682); the speaker-KV scale is a per-column multiplier of
-    the static logits (K side) and weights (V side)."""
+    the static logits (K side) and weights (V side).  int8 static K/V come
+    with kv_scales ((B, T, H), (B, T, H)) fp32, which the kernel folds into
+    those multipliers."""
     gb, s, d = x.shape
     dh = d // num_heads
     q = p.wq(x).reshape(gb, s, num_heads, dh)
@@ -291,20 +295,22 @@ def _joint_attention_static(p: JointAttention, x: torch.Tensor,
     k_self = apply_rotary_emb_half_heads(k_self, freqs_q)
     out = fused_joint_attention(q, k_self, v_self, k_static, v_static,
                                 static_mask, col_scale,
-                                sm_scale=1.0 / (dh ** 0.5))
+                                sm_scale=1.0 / (dh ** 0.5), kv_scales=kv_scales)
     return p.wo(out.reshape(gb, s, d) * torch.sigmoid(gate))
 
 
 def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
-                       kv_static: KV, spk_cols: torch.Tensor,
+                       kv_static: Union[KV, Dict[str, torch.Tensor]],
+                       spk_cols: torch.Tensor,
                        static_mask: torch.Tensor, *, start_pos: int = 0,
                        speaker_scale_by_layer: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Denoiser forward over the pre-concatenated static KV (dit.py:685).
 
-    x (GB, S, latent) and t (GB,) in the model dtype; kv_static from
-    concat_static_kv; static_mask (GB, T) bool; speaker_scale_by_layer (L,)
-    fp32.  Returns float32 (model.py:604)."""
+    x (GB, S, latent) and t (GB,) in the model dtype; kv_static the (k, v)
+    pair from concat_static_kv, or its int8 form from
+    ops.quant.quantize_kv_int8 (dit.py:716-756); static_mask (GB, T) bool;
+    speaker_scale_by_layer (L,) fp32.  Returns float32 (model.py:604)."""
     cfg = model.cfg
     s = x.shape[1]
     freqs_q = freqs_tensor(cfg.head_dim, start_pos + s, x.device)[start_pos:]
@@ -318,13 +324,19 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
     if speaker_scale_by_layer is not None:
         col_scales = 1.0 + ((speaker_scale_by_layer.float()[:, None] - 1.0)
                             * spk_cols.float())
+    kv_q8 = kv_is_quantized(kv_static)
     for li, blk in enumerate(model.blocks):
         col_scale = None if col_scales is None else col_scales[li]
+        if kv_q8:
+            k_st, v_st = kv_static["k8"][li], kv_static["v8"][li]
+            kv_scales = (kv_static["ks"][li], kv_static["vs"][li])
+        else:
+            k_st, v_st, kv_scales = kv_static[0][li], kv_static[1][li], None
         h_norm, gate = low_rank_adaln(h, cond, blk.attention_adaln, cfg.norm_eps)
         h = h + gate * _joint_attention_static(
             blk.attention, h_norm, static_mask, col_scale, freqs_q,
-            kv_static[0][li], kv_static[1][li],
-            num_heads=cfg.num_heads, eps=cfg.norm_eps)
+            k_st, v_st, num_heads=cfg.num_heads, eps=cfg.norm_eps,
+            kv_scales=kv_scales)
         h_norm, gate = low_rank_adaln(h, cond, blk.mlp_adaln, cfg.norm_eps)
         h = h + gate * _mlp(blk.mlp, h_norm)
     h = rms_norm(h, model.out_norm.weight, cfg.norm_eps)

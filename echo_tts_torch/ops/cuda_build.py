@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("joint_attention", "res_stack")
+KERNELS = ("joint_attention", "res_stack", "int8_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

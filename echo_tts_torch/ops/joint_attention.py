@@ -14,12 +14,15 @@ Layouts are the JAX package's: q/k_self/v_self (GB, S, H, Dh) with the GB
 axis G-major over the KV batch B, static K/V (B, T, H, Dh), the static
 mask (GB, T) bool (True = attend) and an optional (T,) column scale that
 multiplies the static logits (K side) and the static weights (V side).
-int8 static K/V (the JAX package's opt-in KV mode) is not ported yet.
+Static K/V may be int8 (the opt-in KV mode, ops/quant.quantize_kv_int8)
+with `kv_scales=(ks, vs)`, (B, T, H) fp32: their per-column products with
+the column scale become the K and V scales.  Launches of that form are
+counted apart, in `fused_joint_attention.launches_kv8`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,23 +33,33 @@ KERNEL_HEAD_DIM = 128   # the DiT's; the only one csrc/joint_attention.cu takes
 
 
 def joint_attention_plain(q, k_self, v_self, k_static, v_static, static_mask,
-                          col_scale=None, *, sm_scale: float) -> torch.Tensor:
+                          col_scale=None, *, sm_scale: float,
+                          kv_scales=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, mirroring `_xla_attention`
     (joint_attention.py:366-400): fp32 logits, one softmax over
     [self | static], the column scale applied to the static weights after
     the denominator, e cast to the V dtype before PV with fp32
-    accumulation.  static_mask (GB, T) bool; col_scale (T,) or None."""
+    accumulation.  static_mask (GB, T) bool; col_scale (T,) or None;
+    int8 static K/V are cast to q's dtype (exact) and kv_scales (B, T, H)
+    fp32 multiply into the K and V column scales."""
     gb, s, h, dh = q.shape
     b, t = k_static.shape[:2]
     g = gb // b
     bias = torch.where(static_mask, 0.0, MASK_VALUE).float()
     scale = (torch.ones((t,), dtype=torch.float32, device=q.device)
              if col_scale is None else col_scale.float())
+    kscale = vscale = scale
+    if kv_scales is not None:
+        k_static, v_static = k_static.to(q.dtype), v_static.to(q.dtype)
+        # (B, T, H) -> (1, B, H, 1, T), one fp32 product with the column scale
+        kscale, vscale = (
+            (scale * x.float().permute(0, 2, 1)).reshape(1, b, h, 1, t)
+            for x in kv_scales)
     qg = q.float().reshape(g, b, s, h, dh)
     ls = torch.einsum("gbshd,gbthd->gbhst", qg,
                       k_self.float().reshape(g, b, s, h, dh)) * sm_scale
     lt = torch.einsum("gbshd,bthd->gbhst", qg, k_static.float()) * sm_scale
-    lt = lt * scale + bias.reshape(g, b, 1, 1, t)
+    lt = lt * kscale + bias.reshape(g, b, 1, 1, t)
     m = torch.maximum(ls.amax(-1, keepdim=True), lt.amax(-1, keepdim=True))
     e_self = torch.exp(ls - m)
     e_st = torch.exp(lt - m)
@@ -54,20 +67,23 @@ def joint_attention_plain(q, k_self, v_self, k_static, v_static, static_mask,
     acc = torch.einsum("gbhst,gbthd->gbhsd", e_self.to(v_self.dtype).float(),
                        v_self.float().reshape(g, b, s, h, dh))
     acc = acc + torch.einsum("gbhst,bthd->gbhsd",
-                             (e_st * scale).to(v_static.dtype).float(),
+                             (e_st * vscale).to(v_static.dtype).float(),
                              v_static.float())
     out = (acc / denom).to(q.dtype)                  # (G, B, H, S, Dh)
     return out.permute(0, 1, 3, 2, 4).reshape(gb, s, h, dh)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+_SIZES = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+          + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 8 + _SIZES
+_ARGTYPES_KV8 = [ctypes.c_void_p] * 10 + _SIZES
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """The kernel reads rows of 8 bf16 (16 bytes) at a time."""
+    """The kernel reads rows 16 bytes at a time: 8 bf16, or 16 int8."""
+    per_16b = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in x.stride()[:-1]))
+            and all(st % per_16b == 0 for st in x.stride()[:-1]))
 
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
@@ -78,17 +94,21 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q, k_self, v_self, k_static, v_static, static_mask, col_scale,
-            sm_scale: float) -> torch.Tensor:
+            sm_scale: float, kv_scales=None) -> torch.Tensor:
     gb, s, h, dh = q.shape
     b, t = k_static.shape[:2]
+    kv_dtype = torch.bfloat16 if kv_scales is None else torch.int8
     tensors = (q, k_self, v_self, k_static, v_static)
-    if any(x.dtype != torch.bfloat16 for x in tensors):
-        raise TypeError("the joint-attention kernel takes bf16 q/k/v; got "
+    if any(x.dtype != torch.bfloat16 for x in tensors[:3]) or any(
+            x.dtype != kv_dtype for x in tensors[3:]):
+        raise TypeError("the joint-attention kernel takes bf16 q/k/v and "
+                        "bf16, or int8 with kv_scales, static K/V; got "
                         f"{[str(x.dtype) for x in tensors]}")
     if dh != KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {dh}: the kernel takes {KERNEL_HEAD_DIM}")
     dev = q.device
     extra = (static_mask,) if col_scale is None else (static_mask, col_scale)
+    extra += () if kv_scales is None else tuple(kv_scales)
     if any(x.device != dev for x in (*tensors, *extra)):
         raise ValueError("joint attention inputs on different devices")
     if static_mask.dtype != torch.bool:
@@ -104,18 +124,27 @@ def _launch(q, k_self, v_self, k_static, v_static, static_mask, col_scale,
         k_static, v_static = _dense(k_static), _dense(v_static)
     out = torch.empty_like(q)
     lib = cuda_build.load("joint_attention")
-    fn = lib.echo_joint_attention_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
+    ptrs = [q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
             k_static.data_ptr(), v_static.data_ptr(), mask.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            gb, s, h, dh, b, t, *q.stride()[:3], *k_static.stride()[:3],
-            float(sm_scale), stream)
+            None if scale is None else scale.data_ptr()]
+    if kv_scales is None:
+        fn, argtypes = lib.echo_joint_attention_bf16, _ARGTYPES
+    else:
+        # the kernel indexes the (B, T, H) scales densely
+        deq = [x.float().contiguous() for x in kv_scales]
+        ptrs += [x.data_ptr() for x in deq]
+        fn, argtypes = lib.echo_joint_attention_kv8, _ARGTYPES_KV8
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(*ptrs, out.data_ptr(), gb, s, h, dh, b, t, *q.stride()[:3],
+            *k_static.stride()[:3], float(sm_scale), stream)
     cuda_build.check(rc, "joint_attention")
     # the temporaries made here may be freed once this returns: the caching
     # allocator hands their memory only to work queued later on this stream
-    fused_joint_attention.launches += 1
+    if kv_scales is None:
+        fused_joint_attention.launches += 1
+    else:
+        fused_joint_attention.launches_kv8 += 1
     return out
 
 
@@ -123,11 +152,16 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
                           v_self: torch.Tensor, k_static: torch.Tensor,
                           v_static: torch.Tensor, static_mask: torch.Tensor,
                           col_scale: Optional[torch.Tensor] = None, *,
-                          sm_scale: float) -> torch.Tensor:
+                          sm_scale: float,
+                          kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                          = None) -> torch.Tensor:
     """Joint attention (GB, S, H, Dh) -> (GB, S, H, Dh) in q's dtype.
 
-    CPU tensors run `joint_attention_plain`; CUDA tensors launch the kernel
-    and count the launch in `fused_joint_attention.launches`."""
+    Static K/V are q's dtype, or int8 with kv_scales = (ks, vs), each
+    (B, T, H) fp32.  CPU tensors run `joint_attention_plain`; CUDA tensors
+    launch the kernel and count the launch in
+    `fused_joint_attention.launches` (bf16 static K/V) or
+    `fused_joint_attention.launches_kv8` (int8)."""
     gb, s, h, dh = q.shape
     b, t = k_static.shape[:2]
     if (k_self.shape != q.shape or v_self.shape != q.shape
@@ -140,17 +174,26 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
         raise ValueError(f"q batch {gb} must be a multiple of the KV batch "
                          f"{b}; static_mask {tuple(static_mask.shape)} must "
                          f"be ({gb}, {t})")
-    if not k_static.is_floating_point() or not v_static.is_floating_point():
-        raise TypeError("int8 static K/V is not ported yet")
+    int8_kv = k_static.dtype == torch.int8 and v_static.dtype == torch.int8
+    if (kv_scales is not None) != int8_kv or not (
+            int8_kv or (k_static.is_floating_point()
+                        and v_static.is_floating_point())):
+        raise TypeError(f"static K/V {k_static.dtype}/{v_static.dtype}: "
+                        "float without kv_scales, or int8 with them")
+    if kv_scales is not None and any(x.shape != (b, t, h) for x in kv_scales):
+        raise ValueError(f"kv_scales {[tuple(x.shape) for x in kv_scales]} "
+                         f"must be ({b}, {t}, {h}) each")
     if col_scale is not None and col_scale.shape != (t,):
         raise ValueError(f"col_scale {tuple(col_scale.shape)} must be ({t},)")
     if q.device.type == "cpu":
         return joint_attention_plain(q, k_self, v_self, k_static, v_static,
-                                     static_mask, col_scale, sm_scale=sm_scale)
+                                     static_mask, col_scale, sm_scale=sm_scale,
+                                     kv_scales=kv_scales)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k_self, v_self, k_static, v_static, static_mask,
-                   col_scale, sm_scale)
+                   col_scale, sm_scale, kv_scales)
 
 
 fused_joint_attention.launches = 0
+fused_joint_attention.launches_kv8 = 0

@@ -1,0 +1,216 @@
+"""Int8 quantization for the opt-in serving modes: the W8A8 DiT and the int8
+static K/V.
+
+Counterpart of echo_tts_tpu/ops/quant.py.  Both modes are non-parity (the
+reference has no quantization) and off by default:
+
+  * W8A8: the eight hot-loop weights of every DiT block
+    (`DIT_BLOCK_QUANT_KEYS`) become symmetric per-output-channel int8 with
+    fp32 scales; activations are quantized per row inside `int8_dot`,
+    which launches the hand-written kernel C (csrc/int8_matmul.cu) for
+    CUDA tensors and runs the plain version for CPU tensors.
+  * int8 static K/V: `quantize_kv_int8` stores the prefilled K/V int8 with
+    per-(token, head) scales that the joint-attention kernel folds into its
+    per-column K/V scales.
+
+The JAX `qdot` dispatches on the parameter leaf's type; here the module's
+type does: `quantize_dit` swaps those `nn.Linear`s for `Int8Linear`s
+whose forward is `int8_dot`, so the DiT's forward code keeps one path for
+both modes.  The port's weights are (N, K) (nn.Linear's (out, in)), so
+every per-output-channel scale reduces over the last axis, which gives
+the numbers the JAX package gets over axis -2 of its (K, N).
+
+The K-halves int4 packing (W4A8, a rejected mode kept for checkpoint
+compatibility) is here too.  Quantization-aware training (`qat_dot`,
+`qat_tag_dit_params`) belongs to the training slice and is not ported.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from .int8_matmul import int8_matmul_fused, quantize_last
+
+# The hot-loop weights of each DiT block: applied to (G*B, S, .) rows on
+# every sampler step (ops/quant.py:116-120 of the JAX package).
+DIT_BLOCK_QUANT_KEYS = (
+    ("attention", "wq"), ("attention", "wk"), ("attention", "wv"),
+    ("attention", "gate"), ("attention", "wo"),
+    ("mlp", "w1"), ("mlp", "w2"), ("mlp", "w3"),
+)
+KV_Q8_KEYS = ("k8", "ks", "v8", "vs")
+
+
+def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., N, K) weight -> (int8 (..., N, K), fp32 scale (..., N)), the
+    scale being each output channel's abs-max over K / 127."""
+    q, scale = quantize_last(w, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_weight(q8: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Inverse of quantize_weight_int8 (up to rounding)."""
+    return (q8.float() * scale[..., None]).to(dtype)
+
+
+# x @ dequant(w8)^T with dynamic per-row int8 activation quantization:
+# x (..., K) float, w8 (N, K) int8, w_scale (N,) fp32 -> (..., N) in
+# out_dtype (default x's).  Kernel C for CUDA tensors, its plain version for
+# CPU tensors: the JAX package's int8_dot and int8_matmul_fused compute one
+# function, so the port has one (ops/int8_matmul.py).
+int8_dot = int8_matmul_fused
+
+
+# ---------------------------------------------------------------------------
+# W4A8: K-halves nibble packing (byte r = w[r] | (w[r + K/2] << 4) along K)
+# ---------------------------------------------------------------------------
+
+def quantize_weight_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., N, K) weight -> (packed int8 (..., N, K/2), fp32 scale (..., N)),
+    values in [-7, 7].  Row r of K pairs with row r + K/2, so the unpack is
+    a concatenation.  Needs an even K."""
+    q, scale = quantize_last(w, 7.0)
+    half = q.shape[-1] // 2
+    if 2 * half != q.shape[-1]:
+        raise ValueError(f"int4 packing needs an even K, got {tuple(q.shape)}")
+    q = q.to(torch.int32)
+    packed = (q[..., :half] & 0xF) | ((q[..., half:] & 0xF) << 4)
+    # two's-complement wrap into int8, as the JAX package's astype does
+    packed = torch.where(packed > 127, packed - 256, packed)
+    return packed.to(torch.int8), scale
+
+
+def unpack_weight_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., N, K/2) packed int8 -> (..., N, K) int8 in [-7, 7]: the low
+    nibble is sign-extended, the high one comes out of one arithmetic
+    shift."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def int4_dot(x: torch.Tensor, w4p: torch.Tensor, w_scale: torch.Tensor,
+             out_dtype=None) -> torch.Tensor:
+    """The W4A8 twin of int8_dot: unpack, then int8_dot."""
+    return int8_dot(x, unpack_weight_int4(w4p), w_scale, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quantized linears and the DiT transforms
+# ---------------------------------------------------------------------------
+
+class Int8Linear(nn.Module):
+    """A bias-free linear with an int8 (N, K) weight and one fp32 scale per
+    output channel; forward is `int8_dot`."""
+    quantize = staticmethod(quantize_weight_int8)
+    dot = staticmethod(int8_dot)
+
+    def __init__(self, weight: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.register_buffer("scale", scale)
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
+        if linear.bias is not None:
+            raise ValueError("only bias-free linears are quantized")
+        return cls(*cls.quantize(linear.weight))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dot(x, self.weight, self.scale)
+
+
+class Int4Linear(Int8Linear):
+    """As Int8Linear with a K-halves packed int4 (N, K/2) weight."""
+    quantize = staticmethod(quantize_weight_int4)
+    dot = staticmethod(int4_dot)
+
+
+def _copy_module(mod: nn.Module) -> nn.Module:
+    """A new module object holding the same children, whose table of
+    children can be edited without touching `mod`."""
+    new = copy.copy(mod)
+    new._modules = dict(mod._modules)
+    return new
+
+
+def _map_hot_linears(model: nn.Module,
+                     convert: Callable[[nn.Module], nn.Module]) -> nn.Module:
+    """A new EchoDiT whose DIT_BLOCK_QUANT_KEYS leaves are convert(leaf);
+    every other submodule is shared with `model` by reference."""
+    out = _copy_module(model)
+    blocks = []
+    for blk in model.blocks:
+        new_blk = _copy_module(blk)
+        for group in dict.fromkeys(g for g, _ in DIT_BLOCK_QUANT_KEYS):
+            new_blk._modules[group] = _copy_module(blk._modules[group])
+        for group, key in DIT_BLOCK_QUANT_KEYS:
+            parent = new_blk._modules[group]
+            parent._modules[key] = convert(parent._modules[key])
+        blocks.append(new_blk)
+    out._modules["blocks"] = nn.ModuleList(blocks)
+    return out
+
+
+def quantize_dit(model: nn.Module) -> nn.Module:
+    """The W8A8 DiT (counterpart of quantize_dit_params): a new EchoDiT in
+    which the eight hot-loop linears of every block are Int8Linear.
+    Everything else (encoders, static-KV projections, AdaLN, norms, in/out
+    projections, cond MLP) is shared by reference.  Idempotent: a leaf that
+    is already Int8Linear is kept."""
+    return _map_hot_linears(model, lambda m: m if isinstance(m, Int8Linear)
+                            else Int8Linear.from_linear(m))
+
+
+def quantize_dit_int4(model: nn.Module) -> nn.Module:
+    """quantize_dit, int4 edition (the same hot-loop leaves; a leaf that is
+    already quantized either way is kept)."""
+    return _map_hot_linears(model, lambda m: m if isinstance(m, Int8Linear)
+                            else Int4Linear.from_linear(m))
+
+
+def dit_is_quantized(model: nn.Module) -> bool:
+    """True iff every hot-loop leaf of every block is Int8Linear, False iff
+    none is; raises on a mixed model, which must not be served with mixed
+    bf16/int8 numerics."""
+    states: Dict[str, bool] = {
+        f"blocks.{i}.{g}.{k}": type(blk._modules[g]._modules[k]) is Int8Linear
+        for i, blk in enumerate(model.blocks) for g, k in DIT_BLOCK_QUANT_KEYS}
+    if all(states.values()):
+        return True
+    if not any(states.values()):
+        return False
+    quantized = sorted(k for k, v in states.items() if v)
+    raise ValueError(
+        f"partially quantized DiT: quantized leaves {quantized} but not the "
+        "rest; run quantize_dit on the whole model")
+
+
+# ---------------------------------------------------------------------------
+# Int8 static K/V
+# ---------------------------------------------------------------------------
+
+def quantize_kv_int8(k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Static K/V pair (L, B, T, H, Dh) -> {"k8", "ks", "v8", "vs"}: int8
+    arrays and fp32 per-(L, B, T, H) scales over the head dimension."""
+    k8, ks = quantize_last(k, 127.0)
+    v8, vs = quantize_last(v, 127.0)
+    return {"k8": k8.to(torch.int8), "ks": ks,
+            "v8": v8.to(torch.int8), "vs": vs}
+
+
+def dequantize_kv(q: Dict[str, torch.Tensor], dtype=torch.bfloat16
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of quantize_kv_int8 (up to rounding)."""
+    k = (q["k8"].float() * q["ks"][..., None]).to(dtype)
+    v = (q["v8"].float() * q["vs"][..., None]).to(dtype)
+    return k, v
+
+
+def kv_is_quantized(kv) -> bool:
+    return isinstance(kv, dict) and all(x in kv for x in KV_Q8_KEYS)

@@ -17,6 +17,7 @@ import torch
 
 from ..config import EchoDiTConfig
 from ..models import dit
+from ..ops.quant import quantize_kv_int8
 
 
 class StepPlan(NamedTuple):
@@ -171,11 +172,18 @@ def sample_euler_cfg_independent_guidances(
     dtype=torch.bfloat16,
     initial_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    kv_quant: bool = False,
 ) -> torch.Tensor:
     """Latents (B, sequence_length, latent_size) float32 on the model's
     device.  Exactly one of `initial_noise` (f32) or `generator` (a
     torch.Generator on the model's device, in place of the JAX rng_key)
-    draws the starting noise."""
+    draws the starting noise.
+
+    kv_quant=True stores the prefilled static K/V int8
+    (ops.quant.quantize_kv_int8, once, before the step loop): half the
+    K/V's memory and read bytes, their scales folded into the attention's
+    column scales.  Opt-in and non-parity (per-token rounding), as in the
+    JAX package (euler.py:244-246)."""
     cfg = model.cfg
     device = next(model.parameters()).device
     batch_size = text_input_ids.shape[0]
@@ -201,6 +209,8 @@ def sample_euler_cfg_independent_guidances(
     kv_speaker = dit.get_kv_cache_speaker(
         model, speaker_latent.to(device=device, dtype=dtype))
     kv_static, spk_cols = dit.concat_static_kv(kv_text, kv_speaker)
+    if kv_quant:
+        kv_static = quantize_kv_int8(*kv_static)
     mask_cfg, mask_plain = make_cfg_branch_masks(cfg, text_mask, speaker_mask)
 
     return run_step_segments(

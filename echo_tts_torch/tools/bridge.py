@@ -11,6 +11,11 @@ the port's modules load them as they are (`load_dit_state`,
 DAC weight norm: the bridge emits `original0 = ||W||` (norm over every
 axis but the first) and `original1 = W`, so the folded weight
 g * v / ||v|| is W again.
+
+A W8A8 tree from the JAX package's `quantize_dit_params` (hot-loop leaves
+{"q8": (L, K, N) int8, "s": (L, N) fp32}) bridges to `<linear>.weight`
+(N, K) int8 and `<linear>.scale` (N,) fp32, which `load_dit_state` loads
+into the port's `Int8Linear`s.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from ..config import DACConfig, EchoDiTConfig
 from ..device import resolve_device
 from ..models.dac.dac import S1DAC
 from ..models.dit import EchoDiT
+from ..ops.quant import quantize_dit
 
 State = Dict[str, np.ndarray]
 
@@ -52,6 +58,15 @@ def _enc_blocks(out: State, prefix: str, blocks: Mapping, n: int) -> None:
         out[f"{b}.mlp_norm.weight"] = _np(blocks["mlp_norm"][i])
 
 
+def _dit_linear(out: State, key: str, leaf, i: int) -> None:
+    """Layer i of a stacked (L, K, N) kernel, or of its int8 form."""
+    if isinstance(leaf, Mapping):
+        out[f"{key}.weight"] = _t(leaf["q8"][i])
+        out[f"{key}.scale"] = _np(leaf["s"][i])
+    else:
+        out[f"{key}.weight"] = _t(leaf[i])
+
+
 def dit_state_from_jax(params: Mapping, cfg: EchoDiTConfig) -> State:
     out: State = {}
     n = cfg.num_layers
@@ -63,11 +78,11 @@ def dit_state_from_jax(params: Mapping, cfg: EchoDiTConfig) -> State:
     for i in range(n):
         b = f"blocks.{i}"
         for name in attn_names:
-            out[f"{b}.attention.{name}.weight"] = _t(blk["attn"][name][i])
+            _dit_linear(out, f"{b}.attention.{name}", blk["attn"][name], i)
         for name in ("q_norm", "k_norm"):
             out[f"{b}.attention.{name}.weight"] = _np(blk["attn"][name][i])
         for name in ("w1", "w2", "w3"):
-            out[f"{b}.mlp.{name}.weight"] = _t(blk["mlp"][name][i])
+            _dit_linear(out, f"{b}.mlp.{name}", blk["mlp"][name], i)
         for which, key in (("attention_adaln", "attn_adaln"),
                            ("mlp_adaln", "mlp_adaln")):
             p = blk[key]
@@ -223,11 +238,12 @@ def pca_state(pca: Mapping, *, device="cuda") -> dict:
 # Loading a state into the port's modules
 # ---------------------------------------------------------------------------
 
-def _load(module: torch.nn.Module, state: Mapping, device,
-          dtype) -> torch.nn.Module:
+def _load(module: torch.nn.Module, state: Mapping,
+          device) -> torch.nn.Module:
     """Load numpy arrays or tensors (a safetensors file's bf16 comes as a
-    tensor) into `module`, cast to its dtype on `device`."""
-    module = module.to(dtype).to_empty(device=device)
+    tensor) into the meta-device `module`, materialized on `device` in the
+    dtypes it has."""
+    module = module.to_empty(device=device)
     module.load_state_dict(
         {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
          for k, v in state.items()}, strict=True)
@@ -236,11 +252,15 @@ def _load(module: torch.nn.Module, state: Mapping, device,
 
 def load_dit_state(state: Mapping, cfg: EchoDiTConfig, *,
                    device="cuda", dtype=torch.bfloat16) -> EchoDiT:
-    """An EchoDiT holding `state` (checkpoint keys), on `device`."""
+    """An EchoDiT holding `state` (checkpoint keys), on `device`; a state
+    with the int8 hot-loop leaves (`<linear>.scale` keys) gives the W8A8
+    model, whose int8 weights and fp32 scales keep their types."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = EchoDiT(cfg)
-    return _load(model, state, device, dtype)
+        model = EchoDiT(cfg).to(dtype)
+        if "blocks.0.attention.wq.scale" in state:
+            model = quantize_dit(model)
+    return _load(model, state, device)
 
 
 def load_dac_state(state: Mapping, cfg: DACConfig, *,
@@ -249,4 +269,4 @@ def load_dac_state(state: Mapping, cfg: DACConfig, *,
     device = resolve_device(device)
     with torch.device("meta"):
         model = S1DAC(cfg)
-    return _load(model, state, device, dtype)
+    return _load(model.to(dtype), state, device)

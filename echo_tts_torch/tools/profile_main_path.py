@@ -6,7 +6,10 @@ Builds the seeded random models at full width (pipeline.random_models),
 answers one voice-cloned request (tests/data/voice.wav as the speaker,
 SAMPLER_DEFAULTS) to warm up, then runs its three stages again: the
 speaker encode (get_speaker_latent_and_mask), the sampler (prefill + 40
-Euler steps) and the decode (ae_decode).  The three
+Euler steps) and the decode (ae_decode); and a fourth, the sampler in the
+int8 serving modes (the same DiT through ops.quant.quantize_dit, as
+serve.models.load_models builds it under ECHO_DIT_QUANT=int8, and
+kv_quant=True) on the same inputs.  The four
 stages first run REPS times without the profiler, for their wall times
 (the median is used, all are printed), and then each once more under it,
 for the device-busy time (the union of every kernel, copy and set interval
@@ -19,6 +22,7 @@ object with those numbers.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -32,6 +36,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import SAMPLER_DEFAULTS, MAX_TEXT_LENGTH
+from ..ops.quant import quantize_dit
 from ..pipeline import audio_io, pipeline as pl
 from ..pipeline.text import get_text_input_ids_and_mask
 
@@ -41,7 +46,8 @@ TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
 REPS = 5    # unprofiled runs of each stage (host-bound stages vary run to run)
 TOP = 12    # kernels listed per stage
 KERNELS = {"joint_attention_kernel": "joint_attention (csrc)",
-           "res_stack_kernel": "res_stack (csrc)"}
+           "res_stack_kernel": "res_stack (csrc)",
+           "int8_matmul_kernel": "int8_matmul (csrc)"}
 
 
 def _label(name: str) -> str:
@@ -138,9 +144,20 @@ def main() -> int:
         return pl.ae_decode(models, latents)
 
     _, dec_ms = _timed(decode, REPS)
+
+    qmodels = dataclasses.replace(models, dit=quantize_dit(models.dit))
+    sample_fn_q = functools.partial(pl.euler_sample_fn, kv_quant=True,
+                                    **SAMPLER_DEFAULTS)
+
+    def sample_int8():
+        return sample_fn_q(qmodels, *inputs, 0)
+
+    sample_int8()                                           # warm-up
+    _, smp8_ms = _timed(sample_int8, REPS)
     stages = [_profiled("encode", encode, enc_ms),
               _profiled("sampler", sample, smp_ms),
-              _profiled("decode", decode, dec_ms)]
+              _profiled("decode", decode, dec_ms),
+              _profiled("sampler_int8", sample_int8, smp8_ms)]
     print(json.dumps({"card": card, "stages": stages}), flush=True)
     return 0
 

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from echo_tts_tpu.models import dit as jdit
+from echo_tts_tpu.ops import quant as jq
 from echo_tts_tpu.sampler.euler import make_cfg_branch_masks as j_masks
 from echo_tts_tpu.tools.convert import convert_dit_state
 
 from echo_tts_torch.config import tiny_dit_config
 from echo_tts_torch.models import dit as tdit
+from echo_tts_torch.ops import quant as tq
 from echo_tts_torch.sampler.euler import make_cfg_branch_masks as t_masks
 from echo_tts_torch.tools import bridge
 
@@ -100,6 +102,42 @@ def test_dit_forward_static_cfg_batch(pair):
             start_pos=3, speaker_scale_by_layer=torch.from_numpy(scale))
     np.testing.assert_array_equal(tcols.numpy(), np.asarray(cols))
     np.testing.assert_array_equal(tmc.numpy(), np.asarray(mask_cfg))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dit_forward_static_w8a8_int8_kv(pair):
+    """The W8A8 DiT (the JAX package's quantize_dit_params, bridged) over
+    int8 static K/V, GB = 3, against the JAX forward on the same inputs:
+    both sides quantize the JAX prefill's K/V with their own (bit-equal)
+    quantizers.  The bound is the fp32 forward's: rounding the activations
+    to int8 did not amplify the two frameworks' fp32 differences here (no
+    value sat within their reach of a rounding tie)."""
+    params, jcfg, _, _ = pair
+    ids, tmask, spk, smask, x, t = _inputs(seed=4)
+    scale = np.linspace(1.0, 1.8, CFG.num_layers).astype(np.float32)
+    qparams = jq.quantize_dit_params(params)
+    model = bridge.load_dit_state(
+        bridge.dit_state_from_jax(jax.tree.map(np.asarray, qparams), CFG),
+        CFG, device="cpu", dtype=torch.float32)
+    assert tq.dit_is_quantized(model)
+
+    kvt = _j_kv_text(params, jcfg, jnp.asarray(ids), jnp.asarray(tmask))
+    kvs = _j_kv_speaker(params, jcfg, jnp.asarray(spk))
+    kv, cols = jdit.concat_static_kv(jcfg, kvt, kvs)
+    mask_cfg, _ = j_masks(jcfg, jnp.asarray(tmask), jnp.asarray(smask))
+    want = _j_forward(
+        qparams, dataclasses.replace(jcfg, attention_impl="xla"),
+        jnp.asarray(x), jnp.asarray(t), jq.quantize_kv_int8(*kv), cols,
+        mask_cfg, start_pos=3, speaker_scale_by_layer=jnp.asarray(scale))
+
+    tkv = tq.quantize_kv_int8(*(torch.from_numpy(np.asarray(a)) for a in kv))
+    with torch.no_grad():
+        got = tdit.dit_forward_static(
+            model, torch.from_numpy(x), torch.from_numpy(t), tkv,
+            torch.from_numpy(np.asarray(cols)),
+            torch.from_numpy(np.asarray(mask_cfg)), start_pos=3,
+            speaker_scale_by_layer=torch.from_numpy(scale))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 

@@ -13,9 +13,11 @@ import torch
 
 import jax.numpy as jnp
 
+from echo_tts_tpu.ops import quant as jq
 from echo_tts_tpu.ops.pallas.joint_attention import fused_joint_attention as j_fused
 
 from echo_tts_torch.ops import joint_attention as ja
+from echo_tts_torch.ops import quant as tq
 
 torch.set_num_threads(1)
 TOL = dict(atol=2e-5, rtol=1e-4)
@@ -54,6 +56,28 @@ def test_plain_matches_pallas_interpret(gb, b, s, t, h, dh, col_scale, flash):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("flash", [False, True], ids=["whole_row", "flash"])
+def test_plain_int8_kv_matches_pallas_interpret(flash):
+    """int8 static K/V with kv_scales (the port's quantizer, held bit-equal
+    to the JAX one in tests/test_torch_quant.py) at the shape of
+    tests/test_pallas_attention.py:190, against both Pallas kernels."""
+    gb, b, s, t, h, dh = 2, 1, 96, 260, 2, 128
+    q, ks, vs, kt, vt, mask, cs = _inputs(11, gb, b, s, t, h, dh, True)
+    sm = dh ** -0.5
+    jkv = jq.quantize_kv_int8(jnp.asarray(kt), jnp.asarray(vt))
+    want = j_fused(*(jnp.asarray(a) for a in (q, ks, vs)), jkv["k8"], jkv["v8"],
+                   jnp.asarray(mask), jnp.asarray(cs), sm_scale=sm,
+                   interpret=True, flash=flash, block_q=64, block_kv=64,
+                   kv_scales=(jkv["ks"], jkv["vs"]))
+    kv = tq.quantize_kv_int8(torch.from_numpy(kt), torch.from_numpy(vt))
+    got = ja.fused_joint_attention(
+        *(torch.from_numpy(a) for a in (q, ks, vs)), kv["k8"], kv["v8"],
+        torch.from_numpy(mask), torch.from_numpy(cs), sm_scale=sm,
+        kv_scales=(kv["ks"], kv["vs"]))
+    assert got.shape == (gb, s, h, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_fully_masked_cfg_segment_is_finite():
     """An uncond branch whose static columns are ALL masked attends to self
     only: finite, and equal to plain self-attention."""
@@ -77,6 +101,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                                  args[4].to(torch.int8), args[5], sm_scale=0.1)
     with pytest.raises(ValueError, match="multiple"):
         ja.fused_joint_attention(*args[:5], args[5][:1], sm_scale=0.1)
+    scales = (torch.ones((1, 16, 1)), torch.ones((1, 16, 1)))
+    with pytest.raises(TypeError, match="kv_scales"):
+        ja.fused_joint_attention(*args, sm_scale=0.1, kv_scales=scales)
+    with pytest.raises(ValueError, match="kv_scales"):
+        ja.fused_joint_attention(*args[:3], args[3].to(torch.int8),
+                                 args[4].to(torch.int8), args[5], sm_scale=0.1,
+                                 kv_scales=(scales[0][:, :8], scales[1]))
 
 
 def test_kernel_launch_needs_cuda():
@@ -86,7 +117,13 @@ def test_kernel_launch_needs_cuda():
         pytest.skip("a CUDA device is present")
     q, ks, vs, kt, vt, mask, _ = _inputs(9, 1, 1, 8, 16, 1, 128, False)
     t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, ks, vs, kt, vt)]
-    before = ja.fused_joint_attention.launches
+    before = (ja.fused_joint_attention.launches,
+              ja.fused_joint_attention.launches_kv8)
     with pytest.raises(RuntimeError, match="CUDA"):
         ja._launch(*t, torch.from_numpy(mask), torch.ones((16,)), 0.125)
-    assert ja.fused_joint_attention.launches == before
+    kv = tq.quantize_kv_int8(t[3], t[4])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ja._launch(*t[:3], kv["k8"], kv["v8"], torch.from_numpy(mask), None,
+                   0.125, (kv["ks"], kv["vs"]))
+    assert (ja.fused_joint_attention.launches,
+            ja.fused_joint_attention.launches_kv8) == before

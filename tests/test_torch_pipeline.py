@@ -41,16 +41,16 @@ def _noise(seed: int) -> np.ndarray:
     return rng.standard_normal((1, SEQ, DIT_CFG.latent_size)).astype(np.float32)
 
 
-def _j_sample_fn(models, spk, smask, ids, tmask, seed):
+def _j_sample_fn(models, spk, smask, ids, tmask, seed, **kw):
     return j_sample(models.dit_params, models.dit_cfg, spk, smask, ids, tmask,
                     dtype=jnp.float32, initial_noise=jnp.asarray(_noise(seed)),
-                    **KW)
+                    **KW, **kw)
 
 
-def _t_sample_fn(models, spk, smask, ids, tmask, seed):
+def _t_sample_fn(models, spk, smask, ids, tmask, seed, **kw):
     return sample_euler_cfg_independent_guidances(
         models.dit, spk, smask, ids, tmask, dtype=torch.float32,
-        initial_noise=torch.from_numpy(_noise(seed)), **KW)
+        initial_noise=torch.from_numpy(_noise(seed)), **KW, **kw)
 
 
 def _states(jm):
@@ -94,6 +94,33 @@ def test_pipeline_matches_jax(pair, case):
         want, want_txt = jpl.sample_pipeline(jm, _j_sample_fn, TEXT, voice, 5)
         got, got_txt = tpl.sample_pipeline(port, _t_sample_fn, TEXT, voice, 5)
     assert got_txt == want_txt
+    assert got.shape == want.shape and got.shape[1] > 0
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_pipeline_w8a8_kv8_matches_jax(tiny_models):
+    """sample_pipeline with the W8A8 DiT (the JAX package's
+    quantize_dit_params, bridged) and kv_quant=True in the sample_fn, on
+    inputs where the two frameworks take the same int8 decisions (see
+    tests/test_torch_sampler.py), against the JAX pipeline."""
+    import dataclasses
+    import functools
+
+    from echo_tts_tpu.ops import quant as jq
+
+    jm = dataclasses.replace(
+        tiny_models, dit_params=jq.quantize_dit_params(tiny_models.dit_params))
+    dit_state, dac_state = _states(jm)
+    port = tpl.EchoModels(
+        dit=bridge.load_dit_state(dit_state, DIT_CFG, device="cpu",
+                                  dtype=torch.float32),
+        dac=bridge.load_dac_state(dac_state, DAC_CFG, device="cpu"),
+        pca=bridge.pca_state(jax.tree.map(np.asarray, jm.pca), device="cpu"),
+        dtype=torch.float32)
+    want, _ = jpl.sample_pipeline(
+        jm, functools.partial(_j_sample_fn, kv_quant=True), TEXT, None, 0)
+    got, _ = tpl.sample_pipeline(
+        port, functools.partial(_t_sample_fn, kv_quant=True), TEXT, None, 0)
     assert got.shape == want.shape and got.shape[1] > 0
     np.testing.assert_allclose(got, want, **TOL)
 
