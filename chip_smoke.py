@@ -9,22 +9,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      would blur the plain versions the kernels are held against);
   2. build the three hand-written kernels from csrc/ (one nvcc each, in
      parallel) and print the build seconds and ptxas's report;
-  3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (and, for the residual stack, at blocks shorter than one
-     tile): joint attention with bf16 and with int8 static K/V, the
-     residual stack, and the W8A8 matmul (fp32 output within 1e-5 of the
-     plain version, bf16 output rel-RMS); max-abs and rel-RMS error
-     against the bound rel-RMS <= 1e-2 (for the residual stack also over
-     the first tile alone), kernel / plain / library times and the card's
-     bound for the same work;
-  4. the main path at full width with seeded random weights: four
+  3. the main path at full width with seeded random weights: four
      requests (no speaker; tests/data/voice.wav as speaker; a two-chunk
      text with that voice; and that voice again through the int8 serving
      modes, the W8A8 DiT from serve.models.load_models under
      ECHO_DIT_QUANT=int8 with kv_quant=True) through sample_pipeline /
      sample_pipeline_chunked, checking the audio and every kernel's launch
      count, with stage times and RTF;
+  4. each kernel against its plain PyTorch version on the card at the main
+     path's shapes (and at ragged shapes shorter than one tile): joint
+     attention with bf16 and with int8 static K/V, the residual stack, and
+     the W8A8 matmul (fp32 output within 1e-5 of the plain version, bf16
+     output rel-RMS); max-abs and rel-RMS error against the bound rel-RMS
+     <= 1e-2 (for the residual stack also over the first tile alone);
+     kernel / plain / library device times (torch.profiler's sum of the
+     device intervals the calls queue; kernel C's pre-pass and product
+     together), the host microseconds per wrapper call, and the card's
+     bound for the same work;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
+With --kernels-only it skips phase 3 and prints one {"cases": ...} line
+after phase 4 instead, so that two trees' kernels can be timed in one call.
 Imports nothing of JAX or of echo_tts_tpu.
 """
 from __future__ import annotations
@@ -67,19 +71,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def timed(fn, reps: int) -> float:
-    """Mean ms per call on the card (CUDA events, after one warm-up)."""
+def timed(fn, reps: int) -> dict:
+    """One call of fn, after a warm-up: `ms`, its device time, the sum of
+    the device intervals (kernels, copies, sets) that `reps` calls queue,
+    as torch.profiler reads them, over reps; `by_name`, that sum split by
+    kernel name; `host_us`, the host's microseconds to issue one call (the
+    wall time of `reps` calls queued without a synchronise, over reps)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    # a trace now and then comes back without its device events: take it
+    # again (at most three times) rather than report nothing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                span = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + span
+        ms = sum(by_name.values())
+        if ms > 0:
+            return dict(ms=ms, by_name=by_name, host_us=host_us)
+        log("  (torch.profiler saw no device time; tracing again)")
+    raise AssertionError("torch.profiler saw no device time")
 
 
 def errors(got, want) -> tuple:
@@ -136,7 +161,7 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
@@ -185,8 +210,9 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     name = f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} T={t}"
     if rel > REL_RMS_BOUND:
         raise AssertionError(f"{name}: rel-RMS {rel:.3e} > {REL_RMS_BOUND}")
-    kernel_ms = timed(lambda: ja.fused_joint_attention(*args, **kw), 50)
-    plain_ms = timed(lambda: ja.joint_attention_plain(*args, **kw), 5)
+    kernel = timed(lambda: ja.fused_joint_attention(*args, **kw), 50)
+    kernel_ms = kernel["ms"]
+    plain_ms = timed(lambda: ja.joint_attention_plain(*args, **kw), 5)["ms"]
     # yardstick only: one library call on [self | static] with K and V
     # pre-scaled and the bias as an additive mask; the port never calls it
     import torch.nn.functional as F
@@ -199,7 +225,7 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     am = torch.cat([torch.zeros((gb, s), device=dev), bias], 1)[:, None, None, :]
     am = am.to(torch.bfloat16)
     library_ms = timed(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=am, scale=sm), 50)
+        qb, kb, vb, attn_mask=am, scale=sm), 50)["ms"]
     flops = 4.0 * gb * h * s * (s + t) * dh
     # q, k_self, v_self, out bf16; static K/V; their int8 scales; mask;
     # column scale
@@ -208,10 +234,12 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     b_ms, b_by = bound(flops, nbytes)
     res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}"
                + (" int8 K/V" if kv8 else ""), max_abs_err=max_abs,
-               rel_rms=rel, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               rel_rms=rel, ms=kernel_ms, host_us=kernel["host_us"],
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
     log(f"  attention {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
-        f" (bound {REL_RMS_BOUND}) kernel_ms {kernel_ms:.4f} plain_ms "
+        f" (bound {REL_RMS_BOUND}) kernel_ms {kernel_ms:.4f} host_us "
+        f"{kernel['host_us']:.1f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by})")
     return res
@@ -252,18 +280,21 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
                              f"rel-RMS {rel:.3e}, first {head} frames "
                              f"{rel_head:.3e}, bound {REL_RMS_BOUND}")
     reps = 5 if length > 4096 else 50
-    kernel_ms = timed(lambda: rs.fused_res_stack(x, weights, approx_snake=approx),
-                      reps)
+    kernel = timed(lambda: rs.fused_res_stack(x, weights, approx_snake=approx),
+                   reps)
+    kernel_ms = kernel["ms"]
     plain_ms = timed(lambda: rs.res_stack_plain(x, *args, approx_snake=approx),
-                     max(3, reps // 5))
+                     max(3, reps // 5))["ms"]
     flops = 3 * 2.0 * 8 * c * c * length
     nbytes = 2 * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
     b_ms, b_by = bound(flops, nbytes)
     res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}",
                max_abs_err=max_abs, rel_rms=max(rel, rel_head), ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               host_us=kernel["host_us"], plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by)
     log(f"  res_stack {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
-        f" first {head} frames {rel_head:.3e} (bound {REL_RMS_BOUND}) kernel_ms {kernel_ms:.4f} plain_ms "
+        f" first {head} frames {rel_head:.3e} (bound {REL_RMS_BOUND}) kernel_ms "
+        f"{kernel_ms:.4f} host_us {kernel['host_us']:.1f} plain_ms "
         f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
     return res
 
@@ -292,31 +323,46 @@ def int8_matmul_case(m: int, k: int, n: int, seed: int):
                              f"{INT8_FP32_BOUND}), bf16 rel-RMS {rel:.3e} "
                              f"(bound {REL_RMS_BOUND})")
     _, rel_bf16 = errors(out, x @ w.t())      # the mode's own error, shown
-    kernel_ms = timed(lambda: im.int8_matmul_fused(x, w8, ws), 50)
-    plain_ms = timed(lambda: im.int8_matmul_plain(x, w8, ws), 5)
+    kernel = timed(lambda: im.int8_matmul_fused(x, w8, ws), 50)
+    kernel_ms = kernel["ms"]
+    # kernel C's time is its two launches together; the pre-pass apart
+    prepass_ms = sum(v for k, v in kernel["by_name"].items()
+                     if "quantize_rows" in k)
+    plain_ms = timed(lambda: im.int8_matmul_plain(x, w8, ws), 5)["ms"]
     # yardsticks only, never called by the port: the library's int8 product
     # alone on pre-quantized operands, and the bf16 product it replaces
     xq = im.quantize_last(x, 127.0)[0].to(torch.int8)
-    library_ms = timed(lambda: torch._int_mm(xq, w8.t()), 50)
-    bf16_ms = timed(lambda: torch.matmul(x, w.t()), 50)
+    library_ms = timed(lambda: torch._int_mm(xq, w8.t()), 50)["ms"]
+    bf16_ms = timed(lambda: torch.matmul(x, w.t()), 50)["ms"]
     # x bf16, w int8, w_scale fp32 read once; out bf16 written once
     nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
     b_ms, b_by = bound(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
     res = dict(shape=f"M={m} K={k} N={n}", max_abs_err=max_abs32,
                max_abs_err_bf16=max_abs, rel_rms=rel, ms=kernel_ms,
+               prepass_ms=prepass_ms, host_us=kernel["host_us"],
                plain_ms=plain_ms, library_ms=library_ms,
                bf16_matmul_ms=bf16_ms, bound_ms=b_ms, bound_by=b_by)
     log(f"  {name}: fp32 max_abs {max_abs32:.3e} (bound {INT8_FP32_BOUND}) "
         f"bf16 max_abs {max_abs:.3e} rel_rms {rel:.3e} (bound "
         f"{REL_RMS_BOUND}); W8A8 vs bf16 matmul rel_rms {rel_bf16:.3e}; "
-        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} _int_mm_ms "
+        f"kernel_ms {kernel_ms:.4f} (pre-pass {prepass_ms:.4f}) host_us "
+        f"{kernel['host_us']:.1f} plain_ms {plain_ms:.4f} _int_mm_ms "
         f"{library_ms:.4f} bf16_matmul_ms {bf16_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by})")
     return res
 
 
 def phase_kernels():
-    log("phase 3: kernels vs plain")
+    log("phase 4: kernels vs plain")
+    # ragged edges first: query rows and self columns past S = 150, static
+    # columns past T = 300, two and six CFG branches over one static K/V
+    # row; a W8A8 product with M, K and N each shorter than one tile, and
+    # one with ragged M, K and N and more tiles than SMs (some blocks take
+    # two)
+    edges = [attention_case(gb, 150, 300, seed=60 + gb, kv8=kv8)
+             for gb in (2, 6) for kv8 in (False, True)]
+    edges += [int8_matmul_case(37, 96, 64, seed=64),
+              int8_matmul_case(1000, 272, 4104, seed=65)]
     att = [attention_case(gb, 640, t, seed=i) for i, (gb, t) in enumerate(
         [(3, 778), (1, 778), (3, 2368), (1, 2368)])]
     att.append(attention_case(3, 1280, 778, seed=9))
@@ -324,12 +370,15 @@ def phase_kernels():
     # the longest static K/V
     att8 = [attention_case(gb, 640, t, seed=30 + i, kv8=True)
             for i, (gb, t) in enumerate([(3, 778), (1, 778), (3, 2368)])]
+    att8 += [r for r in edges[:4] if "int8" in r["shape"]]
+    att += [r for r in edges[:4] if "int8" not in r["shape"]]
     # every (M, K, N) the W8A8 DiT gives kernel C: M = 1920 on CFG steps
     # (GB=3), 640 else; wq/wk/wv/gate/wo (2048, 2048), w1/w3 (2048, 5888),
     # w2 (5888, 2048)
     mm = [int8_matmul_case(m, k, n, seed=40 + i) for i, (m, k, n) in enumerate(
         [(1920, 2048, 5888), (1920, 2048, 2048), (1920, 5888, 2048),
          (640, 2048, 5888), (640, 2048, 2048), (640, 5888, 2048)])]
+    mm += edges[4:]
     # every (C, L, snake) the main path gives the kernel for 640 latents:
     # decoder blocks 1-3 with the serving decoder's sin2_poly, speaker
     # encoder blocks 0-2 with exact sin; the two decoder widths' other
@@ -344,7 +393,7 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 3: the main path
 # ---------------------------------------------------------------------------
 
 def phase_main_path():
@@ -360,7 +409,7 @@ def phase_main_path():
     from echo_tts_torch.sampler.euler import make_cfg_branch_masks
     from echo_tts_torch.serve import models as serve_models
 
-    log("phase 4: main path (full width, seeded random weights)")
+    log("phase 3: main path (full width, seeded random weights)")
     t0 = time.perf_counter()
     models = pl.random_models()
     torch.cuda.synchronize()
@@ -499,7 +548,13 @@ def phase_main_path():
             kv_s = tdit.get_kv_cache_speaker(models.dit, lat_t)
             return tdit.concat_static_kv(kv_t, kv_s)
 
-    prefill_ms = timed(prefill, 3)
+    prefill()                                   # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) / 3 * 1e3    # wall, host clock
     for key in ("b", "d"):
         log(f"  stage ms (request {key}): prefill (bf16 DiT) {prefill_ms:.1f}, "
             f"sampler (incl. prefill) {request_stats[key]['sampler_ms'][0]:.1f}, "
@@ -532,18 +587,29 @@ def kernel_entry(name, source, replaces, cases, main, launches, **extra):
                 launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in cases),
                 rel_rms=max(r["rel_rms"] for r in cases),
-                ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+                ms=main["ms"], kernel_ms=main["ms"], host_us=main["host_us"],
+                plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shape=main["shape"], **extra)
 
 
-def main() -> int:
+def main(argv) -> int:
     t_start = time.perf_counter()
     import torch
     phase_device()
     phase_build()
+    kernels_only = "--kernels-only" in argv
+    # the main path runs before the kernels are timed: torch.profiler, which
+    # times them, leaves tracing attached that slows the host-bound
+    # sampler's wall time afterwards
+    launches = None if kernels_only else phase_main_path()
     att, att8, rst, mm = phase_kernels()
-    launches = phase_main_path()
+    if kernels_only:
+        # the kernels alone, to time two trees' kernels in one call
+        print(json.dumps({"cases": dict(attention=att, attention_kv8=att8,
+                                        res_stack=rst, int8_matmul=mm)}),
+              flush=True)
+        return 0
     kernels = [
         # GB=3, S=640, T=778: request b's shape; the int8 K/V form at
         # request d's, with its own numbers and launch count
@@ -554,7 +620,7 @@ def main() -> int:
             launches["joint_attention"] + launches["joint_attention_kv8"],
             launches_bf16=launches["joint_attention"],
             launches_kv8=launches["joint_attention_kv8"],
-            kv8={k: att8[0][k] for k in ("shape", "ms", "plain_ms",
+            kv8={k: att8[0][k] for k in ("shape", "ms", "host_us", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "rel_rms")}),
         # C=96 with the serving decoder's snake
@@ -569,6 +635,7 @@ def main() -> int:
             "echo_tts_tpu/ops/pallas/int8_matmul.py:44 (_kernel)", mm, mm[0],
             launches["int8_matmul"],
             max_abs_err_bf16=max(r["max_abs_err_bf16"] for r in mm),
+            prepass_ms=mm[0]["prepass_ms"],
             bf16_matmul_ms=mm[0]["bf16_matmul_ms"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -580,4 +647,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,348 @@
+// Hopper (sm_90a) plumbing shared by the port's hand-written kernels:
+// mbarriers, TMA tile loads, wgmma descriptors and instructions, and
+// warpgroup register rebalancing.  Header only; every kernel source that
+// includes it is rebuilt when it changes (ops/cuda_build.py hashes it).
+//
+// Conventions.  Shared-memory tiles that wgmma reads are written by TMA
+// with the 128-byte swizzle: a tile is rows of 128 bytes, each 1024-byte
+// group of 8 rows is one swizzle atom (16-byte chunk c of row r lands at
+// chunk c ^ (r % 8)), and every tile starts on 1024 bytes.  Tensor maps are
+// built on the host with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint so that no library beyond the CUDA runtime is
+// linked, and passed to kernels as __grid_constant__ parameters.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// shared memory and barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The block's dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's atom); launch with 1024 bytes to spare.  Offsetting
+// the extern array itself keeps the pointer in the shared space, so that
+// accesses through it compile to shared loads and stores.
+__device__ __forceinline__ uint8_t* smem_aligned_1024(uint8_t* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA);
+// follow it with __syncthreads().
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also tells the barrier to wait for `bytes` from TMA.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Expect `bytes` from TMA without arriving: the phase then completes at
+// the later arrival and the last byte, whichever comes last.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that has
+// not completed after two seconds traps (the launch then fails with an
+// error) instead of hanging the card; no kernel of the port runs that long.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+// Barrier among `count` threads (a multiple of 32) of the block; id 0 is
+// __syncthreads()'s, so callers use 1..15.
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Arrive at a named barrier without waiting: the `count` threads are those
+// that sync on it and those that arrive.
+__device__ __forceinline__ void named_arrive(uint32_t id, uint32_t count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operand reads, TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA tile loads: one thread asks, the barrier counts the bytes
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// warpgroup register rebalancing (the producer gives, the consumers take;
+// every warp of a warpgroup executes it)
+// ---------------------------------------------------------------------------
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand.
+//   K-major (rows of 128 bytes along K): sbo = 1024 (the stride between
+//     8-row groups); lbo is unused.  A k-step inside the 128-byte row
+//     advances the start address by its bytes.
+//   MN-major (rows of 128 bytes along M or N, one row per k): lbo = the
+//     stride between 64-element (128-byte) column blocks, sbo = 1024 (the
+//     stride between groups of 8 k-rows).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;   // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to an accumulator across the
+// asynchronous wgmma that owns it.
+template <int NREG>
+__device__ __forceinline__ void fence_regs(float (&r)[NREG]) {
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int NREG>
+__device__ __forceinline__ void fence_regs(int (&r)[NREG]) {
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define HOPPER_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define HOPPER_D128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127" \
+  "}"
+#define HOPPER_R8(c, i)                                                     \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
+      c(d[i + 6]), c(d[i + 7])
+#define HOPPER_R64(c)                                                       \
+  HOPPER_R8(c, 0), HOPPER_R8(c, 8), HOPPER_R8(c, 16), HOPPER_R8(c, 24),     \
+      HOPPER_R8(c, 32), HOPPER_R8(c, 40), HOPPER_R8(c, 48), HOPPER_R8(c, 56)
+#define HOPPER_R128(c)                                                      \
+  HOPPER_R64(c), HOPPER_R8(c, 64), HOPPER_R8(c, 72), HOPPER_R8(c, 80),      \
+      HOPPER_R8(c, 88), HOPPER_R8(c, 96), HOPPER_R8(c, 104),                \
+      HOPPER_R8(c, 112), HOPPER_R8(c, 120)
+
+// d (64 x 128 fp32, the warpgroup's accumulator layout) (+)= A (64 x 16
+// bf16, K-major in shared memory) * B (16 x 128 bf16 in shared memory,
+// K-major if TRANS_B == 0, N-major if 1).  scale_d == 0 overwrites d.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db,
+                                                         int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : HOPPER_R64("+f")
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same with A (64 x 16 bf16) from registers, in the layout of the
+// accumulator's 16 columns it came from (four 32-bit registers a thread).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64],
+                                                         const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : HOPPER_R64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TRANS_B));
+}
+
+// d (64 x 128 int32) (+)= A (64 x 32 int8) * B (32 x 128 int8), both
+// K-major in shared memory (the only form wgmma takes for 8-bit types).
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOPPER_D64
+      ", %64, %65, p;\n}\n"
+      : HOPPER_R64("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same over 256 columns of B (128 int32 a thread).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " HOPPER_D128
+      ", %128, %129, p;\n}\n"
+      : HOPPER_R128("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef HOPPER_D64
+#undef HOPPER_D128
+#undef HOPPER_R128
+#undef HOPPER_R8
+#undef HOPPER_R64
+
+// Accumulator layout of a 64 x N wgmma result, per thread of the
+// warpgroup (warp w, lane l): register 4 * j + i holds row
+// 16 * w + l / 4 + 8 * (i / 2), column 8 * j + 2 * (l % 4) + (i % 2).
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A tiled map of `rank` dimensions, innermost first: dims in elements,
+// strides (rank - 1 of them) in bytes, box in elements.  Out-of-bounds
+// elements of a box read as zero.  Returns 0 or a cudaError_t.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                    const void* ptr, const uint64_t* dims,
+                    const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                        reinterpret_cast<const cuuint64_t*>(dims),
+                        reinterpret_cast<const cuuint64_t*>(strides), box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Raise a kernel's dynamic shared-memory limit, once per kernel.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace hopper

@@ -16,52 +16,63 @@
 // reciprocal, and rintf rounds half to even as torch.round and jnp.round
 // do, so the int32 accumulator equals the plain version's exactly.
 //
-// Design: one block of 8 warps per (128-row, 128-column) output tile;
-// blockIdx.x walks N so that neighbouring blocks share their rows of x in
-// L2.  The block first reads its 128 rows over all of K for the abs-max
-// (K = 5888 int8 rows of 128 would not fit in shared memory, so the rows
-// are read again per K tile rather than held).  It then walks K in tiles
-// of 64: bf16 x is loaded, divided by its row scale, rounded, clipped and
-// stored as int8 in shared memory; the int8 weight tile is copied as it
-// is, since (N, K) row-major is exactly the "col" B operand of
-// mma.sync.m16n8k32.s8.  Each warp owns a 64 x 32 tile of int32
-// accumulators in registers.  Rows >= M and columns >= N are zero-filled
-// and not stored; K must be a multiple of 16 and N of 8 (the wrapper
-// checks, and `supported()` says so).
+// What bounds it on the H100 at the main path's shapes: the int8
+// tensor-core rate, 1979 TOPS.  At M = 1920, (K, N) = (2048, 5888):
+// 2*M*K*N = 46.3 G ops, 23.4 us, against 42.5 MB of bytes (x bf16, w int8,
+// out bf16), 12.7 us at 3.35 TB/s; at M = 640 the shapes sit within 2x of
+// the byte bound.  Below those bounds, operands come from L2 once per
+// tile: a 128 x 256 tile does 171 ops per byte it loads, so at the int8
+// peak the 132 SMs would load about 11.6 TB/s from L2.  Larger tiles, or
+// one load multicast to a cluster of blocks, would cut that (not done).
 //
-// Bound on the H100 at the main path's shapes: the int8 tensor-core rate,
-// 1979 TOPS.  At M = 1920, (K, N) = (2048, 5888): 2*M*K*N = 46.3 G ops,
-// 23.4 us, against 42.5 MB of bytes (x bf16, w int8, out bf16), 12.7 us at
-// 3.35 TB/s.  This simple version is far from that: every block of a row
-// panel re-reads and re-quantizes the same x rows (N/128 times over, from
-// L2), loads are not overlapped with math (no cp.async or TMA ring), and
-// mma.sync is not wgmma.  A pre-pass that quantizes x once, a TMA-fed
-// wgmma s8 main loop and a persistent tile schedule are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: two launches from one entry point (one wrapper call, one
+// counted launch).
+//  1. `int8_quantize_rows_kernel`, a pre-pass: one block of four warps per
+//     row takes the abs-max, then quantizes the row (held in registers for
+//     K <= 6144, read again from L1/L2 beyond) and writes xq (M, K) int8
+//     and x_scale (M,) fp32 into scratch the wrapper allocates.  Its own
+//     bound is bytes: M*K*3 (bf16 in, int8 out), 3.5 us at M = 1920,
+//     K = 2048.  Each row is quantized once, where the first version of
+//     this kernel re-quantized it for each of the N/128 column tiles.
+//  2. `int8_matmul_kernel`, the product: xq (M, K) and w (N, K) are both
+//     K-major, the only form wgmma takes for 8-bit types, so neither is
+//     transposed.  Output tiles of BM = 128 rows by BN = 256 or 128
+//     columns; BK = 128 bytes of K per stage, loaded by TMA with the
+//     128-byte swizzle into a ring of STAGES stages, each with a full and
+//     an empty mbarrier.  One producer thread issues the loads; two
+//     consumer warpgroups each run wgmma.m64n{BN}k32.s32.s8.s8 on their 64
+//     rows, keep one group of wgmma in flight while they wait for the next
+//     stage, and release a stage as soon as the wgmma that read it has
+//     retired.  setmaxnreg moves registers from the producer to the
+//     consumers.  The epilogue applies x_scale and w_scale to the int32
+//     registers in the order above and stores straight to global memory.
+//  The tile plan (ops/int8_matmul.py `_tile_plan`), one block per output
+//  tile: 128 x 256, which reads the fewest operand bytes from L2 per
+//  product, unless that gives fewer than 66 blocks, then 128 x 128.  The
+//  registers of one 384-thread block fill an SM, so a plan with more
+//  blocks than SMs runs in more than one wave.  Three main-path shapes
+//  have fewer than 132 blocks and run in one partial wave: (M, N) =
+//  (1920, 2048) has 120 tiles of 128 x 256, (640, 5888) 115, and (640,
+//  2048) 80 of 128 x 128.  Halving the tile there would give more blocks
+//  than SMs, so some SMs would run two half tiles, which take no less
+//  time than one whole tile and read more operand bytes from L2; split-K
+//  would add an int32 partial-sum pass over the output.  No split-K: each
+//  output
+//  element is one block's int32 sum.  Rows >= M, columns >= N and K
+//  beyond its end are zero-filled by TMA and not stored; K must be a
+//  multiple of 16 (16-byte rows for TMA) and N of 8 (the wrapper checks,
+//  and `supported()` says so).
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;         // rows of x per block
-constexpr int BN = 128;         // output columns per block
-constexpr int BK = 64;          // K per tile (int8 bytes)
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WM = 64;          // warp tile rows (2 warps over M)
-constexpr int WN = 32;          // warp tile columns (4 warps over N)
-constexpr int LDS = BK + 16;    // shared row stride in bytes: 16-B aligned,
-                                // and the 8 rows of a fragment hit 8
-                                // distinct 4-bank groups
+using namespace hopper;
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BM = 128;          // rows per block: two consumer warpgroups
+constexpr int BK = 128;          // K per stage: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 
 // clip(rint(v / s), -127, 127) as one byte
 __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
@@ -69,8 +80,82 @@ __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
   return (uint32_t)(int)q & 0xFFu;
 }
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float amax8(const uint4& v, float amax) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+  return amax;
+}
+
+// 8 bf16 of x as 8 int8
+__device__ __forceinline__ uint2 quant8(const uint4& v, float s) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  uint32_t word[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    word[i / 2] |= (quant_byte(f.x, s) << (16 * (i % 2))) |
+                   (quant_byte(f.y, s) << (16 * (i % 2) + 8));
+  }
+  return make_uint2(word[0], word[1]);
+}
+
+// One block of 128 threads per row: abs-max, then clip(rint(x / scale)).
+// A row is spread over four warps, so that enough warps are in flight to
+// hide the latency of the per-element IEEE division.  With CH > 0 (K <=
+// 1024 * CH) each thread loads its CH 16-byte chunks at once and keeps
+// them in registers, so x is read once; CH == 0 takes any K and reads the
+// row twice, the second time from L1/L2.
+template <int CH>
+__global__ void __launch_bounds__(128)
+int8_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                          int8_t* __restrict__ xq, float* __restrict__ x_scale,
+                          int K) {
+  __shared__ float warp_max[4];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* xr = x + (long long)row * K;
+  int8_t* qr = xq + (long long)row * K;
+  constexpr int STEP = 128 * 8;   // elements per pass of the block
+  uint4 v[CH > 0 ? CH : 1];
+  float amax = 0.f;
+  if constexpr (CH > 0) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = i * STEP + tid * 8;
+      v[i] = c < K ? *reinterpret_cast<const uint4*>(xr + c)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i) amax = amax8(v[i], amax);
+  } else {
+#pragma unroll 4
+    for (int c = tid * 8; c < K; c += STEP)
+      amax = amax8(*reinterpret_cast<const uint4*>(xr + c), amax);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (tid % 32 == 0) warp_max[tid / 32] = amax;
+  __syncthreads();
+  amax = fmaxf(fmaxf(warp_max[0], warp_max[1]), fmaxf(warp_max[2], warp_max[3]));
+  const float s = fmaxf(amax, 1e-12f) / 127.f;
+  if (tid == 0) x_scale[row] = s;
+  if constexpr (CH > 0) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = i * STEP + tid * 8;
+      if (c < K) *reinterpret_cast<uint2*>(qr + c) = quant8(v[i], s);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = tid * 8; c < K; c += STEP)
+      *reinterpret_cast<uint2*>(qr + c) =
+          quant8(*reinterpret_cast<const uint4*>(xr + c), s);
+  }
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -81,164 +166,175 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-int8_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ w,
+template <int BN>
+struct GemmSmem {
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BN * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;
+  // + 1024 to align the base by hand
+  static constexpr int TOTAL = BAR_OFFSET + 2 * STAGES * 8 + 1024;
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&acc)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k32_s8_ss(acc, da, db, 1);
+  else
+    wgmma_m64n128k32_s8_ss(acc, da, db, 1);
+}
+
+// 384 threads: 168 registers each at entry; the producer gives back what
+// the consumers take.
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(384, 1)
+int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_a,
+                   const __grid_constant__ CUtensorMap tm_b,
+                   const float* __restrict__ x_scale,
                    const float* __restrict__ w_scale,
                    OutT* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];
-  __shared__ float xs[BM];
+  using L = GemmSmem<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_aligned_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFFSET);
+  uint64_t* empty = full + STAGES;
 
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;      // row within the 8-row group
-  const int t = lane & 3;       // 4-byte column group within the quad
-  const int wm = warp / (BN / WN);
-  const int wn = warp % (BN / WN);
+  const int n_k = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  // 1. the row scales, each from the abs-max over all of K
-  for (int r = warp; r < BM; r += NWARPS) {
-    const int gr = m0 + r;
-    float amax = 0.f;
-    if (gr < M) {
-      const __nv_bfloat16* row = x + (long long)gr * K;
-      for (int c = lane * 8; c < K; c += 32 * 8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row + c);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h[i]);
-          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 4);   // one arrival per consumer warp
     }
-#pragma unroll
-    for (int o = 16; o; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) xs[r] = fmaxf(amax, 1e-12f) / 127.f;
+    fence_barrier_init();
   }
   __syncthreads();
 
-  int acc[WM / 16][WN / 8][4];
-#pragma unroll
-  for (int mi = 0; mi < WM / 16; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < WN / 8; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // 2. x tile: 8 bf16 a thread -> 8 int8 in shared memory
-    for (int i = threadIdx.x; i < BM * (BK / 8); i += NTHREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      const int gr = m0 + r;
-      const int gc = k0 + c;
-      uint2 packed = make_uint2(0u, 0u);
-      if (gr < M && gc < K) {
-        const uint4 v =
-            *reinterpret_cast<const uint4*>(x + (long long)gr * K + gc);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-        const float s = xs[r];
-        uint32_t word[2] = {0u, 0u};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h[j]);
-          word[j / 2] |= (quant_byte(f.x, s) << (16 * (j % 2))) |
-                         (quant_byte(f.y, s) << (16 * (j % 2) + 8));
-        }
-        packed = make_uint2(word[0], word[1]);
+  if (wg == 2) {
+    // producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        uint8_t* a = smem + s * L::STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], L::STAGE_BYTES);
+        tma_load_2d(a, &tm_a, &full[s], kt * BK, m0);
+        tma_load_2d(a + L::A_BYTES, &tm_b, &full[s], kt * BK, n0);
       }
-      *reinterpret_cast<uint2*>(As + r * LDS + c) = packed;
     }
-    // 3. weight tile: 16 int8 a thread, copied as they are
-    for (int i = threadIdx.x; i < BN * (BK / 16); i += NTHREADS) {
-      const int r = i / (BK / 16);
-      const int c = (i % (BK / 16)) * 16;
-      const int gn = n0 + r;
-      const int gc = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < N && gc < K)
-        v = *reinterpret_cast<const uint4*>(w + (long long)gn * K + gc);
-      *reinterpret_cast<uint4*>(Bs + r * LDS + c) = v;
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x / 32) % 4;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint8_t* a = smem + s * L::STAGE_BYTES + wg * 64 * BK;
+      const uint8_t* b = smem + s * L::STAGE_BYTES + L::A_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_s8<BN>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                     desc_sw128(b + kk * 32, 16, 1024));
+      wgmma_commit();
+      // the previous stage's wgmma has retired once at most this one is
+      // in flight: hand that stage back to the producer
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
     }
-    __syncthreads();
+    wgmma_wait<0>();
+    fence_regs(acc);
 
+    // epilogue: (float)acc * x_scale * w_scale, rounded once to OutT
+    const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int r1 = r0 + 8;
+    const float s0 = r0 < M ? x_scale[r0] : 0.f;
+    const float s1 = r1 < M ? x_scale[r1] : 0.f;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[WM / 16][4];
-      uint32_t b[WN / 8][2];
-#pragma unroll
-      for (int mi = 0; mi < WM / 16; ++mi) {
-        const int8_t* p = As + (wm * WM + mi * 16 + g) * LDS + kk + 4 * t;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * LDS);
-        a[mi][2] = ld32(p + 16);
-        a[mi][3] = ld32(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < WN / 8; ++ni) {
-        const int8_t* p = Bs + (wn * WN + ni * 8 + g) * LDS + kk + 4 * t;
-        b[ni][0] = ld32(p);
-        b[ni][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < WM / 16; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < WN / 8; ++ni)
-          mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-    }
-    __syncthreads();
-  }
-
-  // 4. epilogue: (float)acc * x_scale * w_scale, rounded once to OutT
-#pragma unroll
-  for (int ni = 0; ni < WN / 8; ++ni) {
-    const int col = n0 + wn * WN + ni * 8 + 2 * t;
-    if (col >= N) continue;   // N % 8 == 0, so col + 1 < N as well
-    const float ws0 = w_scale[col];
-    const float ws1 = w_scale[col + 1];
-#pragma unroll
-    for (int mi = 0; mi < WM / 16; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * WM + mi * 16 + g + 8 * half;
-        const int gr = m0 + r;
-        if (gr >= M) continue;
-        const float s = xs[r];
-        const float v0 = (float)acc[mi][ni][2 * half] * s * ws0;
-        const float v1 = (float)acc[mi][ni][2 * half + 1] * s * ws1;
-        store2(out + (long long)gr * N + col, v0, v1);
-      }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col >= N) continue;   // N % 8 == 0, so col + 1 < N as well
+      const float ws0 = w_scale[col];
+      const float ws1 = w_scale[col + 1];
+      if (r0 < M)
+        store2(out + (long long)r0 * N + col, (float)acc[4 * j] * s0 * ws0,
+               (float)acc[4 * j + 1] * s0 * ws1);
+      if (r1 < M)
+        store2(out + (long long)r1 * N + col, (float)acc[4 * j + 2] * s1 * ws0,
+               (float)acc[4 * j + 3] * s1 * ws1);
     }
   }
+}
+
+template <int BN, typename OutT>
+int launch_gemm(const void* xq, const void* w, const float* xs,
+                const float* ws, void* out, int M, int N, int K,
+                cudaStream_t st) {
+  using L = GemmSmem<BN>;
+  static const int attr = allow_smem(int8_matmul_kernel<BN, OutT>, L::TOTAL);
+  if (attr) return attr;
+  CUtensorMap ta, tb;
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t dims_b[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t stride[1] = {(uint64_t)K};
+  const uint32_t box_a[2] = {BK, BM};
+  const uint32_t box_b[2] = {BK, BN};
+  int rc;
+  if ((rc = make_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, dims_a, stride,
+                     box_a, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (rc = make_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dims_b, stride,
+                     box_b, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return rc;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  int8_matmul_kernel<BN, OutT><<<grid, 384, L::TOTAL, st>>>(
+      ta, tb, xs, ws, reinterpret_cast<OutT*>(out), M, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (echo_tts_torch/ops/int8_matmul.py).
-// x (M, K) bf16, w (N, K) int8 and out (M, N) are contiguous and 16-byte
-// aligned; w_scale is (N,) fp32; out is bf16 when out_bf16 != 0, else
-// fp32.  K % 16 == 0 and N % 8 == 0.  Returns cudaGetLastError() after
-// the launch.
+// x (M, K) bf16, w (N, K) int8, out (M, N) and the scratch xq (M, K) int8
+// are contiguous and 16-byte aligned; w_scale and the scratch x_scale are
+// (N,) and (M,) fp32; out is bf16 when out_bf16 != 0, else fp32.  K % 16
+// == 0 and N % 8 == 0; bn (128 or 256) is the column tile of the wrapper's
+// tile plan.  Launches the pre-pass and the product back to back on
+// `stream`; returns 0 or the first cudaError_t.
 extern "C" int echo_int8_matmul(const void* x, const void* w,
-                                const void* w_scale, void* out, int M, int N,
-                                int K, int out_bf16, void* stream) {
-  if (M < 1 || N < 8 || K < 16 || N % 8 || K % 16)
+                                const void* w_scale, void* out, void* xq,
+                                void* x_scale, int M, int N, int K,
+                                int out_bf16, int bn, void* stream) {
+  if (M < 1 || N < 8 || K < 16 || N % 8 || K % 16 || (bn != 128 && bn != 256))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xp = reinterpret_cast<const __nv_bfloat16*>(x);
-  const int8_t* wp = reinterpret_cast<const int8_t*>(w);
-  const float* sp = reinterpret_cast<const float*>(w_scale);
-  if (out_bf16)
-    int8_matmul_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
-        xp, wp, sp, reinterpret_cast<__nv_bfloat16*>(out), M, N, K);
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  int8_t* xqb = reinterpret_cast<int8_t*>(xq);
+  float* xsb = reinterpret_cast<float*>(x_scale);
+  if (K <= 1024 * 2)
+    int8_quantize_rows_kernel<2><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
+  else if (K <= 1024 * 6)
+    int8_quantize_rows_kernel<6><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
   else
-    int8_matmul_kernel<float><<<grid, NTHREADS, 0, st>>>(
-        xp, wp, sp, reinterpret_cast<float*>(out), M, N, K);
-  return (int)cudaGetLastError();
+    int8_quantize_rows_kernel<0><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const float* xs = reinterpret_cast<const float*>(x_scale);
+  const float* ws = reinterpret_cast<const float*>(w_scale);
+  if (bn == 256)
+    return out_bf16
+        ? launch_gemm<256, __nv_bfloat16>(xq, w, xs, ws, out, M, N, K, st)
+        : launch_gemm<256, float>(xq, w, xs, ws, out, M, N, K, st);
+  return out_bf16
+      ? launch_gemm<128, __nv_bfloat16>(xq, w, xs, ws, out, M, N, K, st)
+      : launch_gemm<128, float>(xq, w, xs, ws, out, M, N, K, st);
 }

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use with
+Each `csrc/<name>.cu` exposes a plain C interface (it may include the
+shared `csrc/hopper.cuh`) and is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -31,7 +31,10 @@ KERNELS = ("joint_attention", "res_stack", "int8_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+SMS = 132   # streaming multiprocessors of an H100 SXM, for the tile plans
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -57,9 +60,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{digest}.so"
+    """The library's path, named by a hash of its source, every header in
+    csrc/ (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _require_cuda() -> None:
@@ -116,6 +123,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """Entry point `symbol` of kernel `name`'s library, loaded (and built)
+    on first use; its argtypes and restype (int) are set then, once."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
 
 
 def check(rc: int, what: str) -> None:

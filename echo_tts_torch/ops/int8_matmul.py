@@ -7,17 +7,21 @@ kernel is a kept experiment that the JAX package's `int8_dot` does not
 call (XLA pipelined the quantize-dot-rescale better on the TPU); the two
 compute one function, so here `ops.quant.int8_dot` launches this kernel
 for CUDA tensors.  What bounds the kernel on the H100 is in the source
-note of the .cu file.
+note of the .cu file: a pre-pass quantizes x once (`quantize_last` is its
+plain version), then a TMA-fed wgmma product rescales the int32 sums;
+`_tile_plan` picks its output tile.
 
 Layouts are the port's nn.Linear ones: x (..., K), w8 (N, K) int8 (row n
 is output channel n; the JAX package stores (K, N)), w_scale (N,) fp32.
 `int8_matmul_fused` checks the shape on every device, takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors (or
-raises); it never falls back.
+raises); it never falls back.  One call counts one launch, though the card
+runs the pre-pass and the product.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -56,12 +60,26 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
 
 def supported(m: int, k: int, n: int) -> bool:
     """Shapes kernel C takes: any number of rows, K a multiple of 16 (16-byte
-    rows of int8) and N a multiple of 8 (the mma tile's width).  The DiT's
+    rows of int8 for TMA) and N a multiple of 8 (the epilogue stores
+    column pairs and masks whole groups of 8).  The DiT's
     shapes all qualify (K, N in {64, 96} tiny; 2048, 5888 full width)."""
     return m >= 1 and k >= 16 and k % 16 == 0 and n >= 8 and n % 8 == 0
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+TILE_M = 128     # output rows per block: two consumer warpgroups
+
+
+def _tile_plan(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(rows, columns) of kernel C's output tile, one block each: 128 x 256
+    (which reads less from L2 per product) where that still gives at least
+    half as many blocks as SMs, else 128 x 128.  Why some main-path shapes
+    get fewer blocks than SMs is in the source note of csrc/int8_matmul.cu.
+    K is never split, so each output element is one block's int32 sum."""
+    wide = math.ceil(m / TILE_M) * math.ceil(n / 256) >= cuda_build.SMS // 2
+    return TILE_M, 256 if wide else 128
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -84,10 +102,15 @@ def _launch(x2d: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
     x2d, w8 = _aligned(x2d), _aligned(w8)
     w_scale = w_scale.float().contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = cuda_build.load("int8_matmul").echo_int8_matmul
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    # the pre-pass's output in one scratch buffer (one allocation less per
+    # call): x quantized once, (m, k) int8, then its (m,) fp32 row scales
+    # from the next 16-byte boundary
+    off = -(-m * k // 16) * 16
+    scratch = torch.empty((off + 4 * m,), dtype=torch.int8, device=dev)
+    fn = cuda_build.entry("int8_matmul", "echo_int8_matmul", _ARGTYPES)
     rc = fn(x2d.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            m, n, k, int(out_dtype == torch.bfloat16),
+            scratch.data_ptr(), scratch.data_ptr() + off, m, n, k,
+            int(out_dtype == torch.bfloat16), _tile_plan(m, k, n)[1],
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "int8_matmul")
     int8_matmul_fused.launches += 1

@@ -6,7 +6,7 @@ replaces both Pallas kernels there (`_kernel`, whole-row, and
 `_flash_kernel`, online softmax): one tiled online-softmax kernel serves
 every shape, because the whole-row form existed only to fit the TPU's VMEM.
 Its design and what bounds it on the H100 are in the source note of the
-.cu file.
+.cu file; `_tile_plan` picks its query tile.
 
 `fused_joint_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises); it never falls back.
@@ -73,14 +73,27 @@ def joint_attention_plain(q, k_self, v_self, k_static, v_static, static_mask,
     return out.permute(0, 1, 3, 2, 4).reshape(gb, s, h, dh)
 
 
+QUERY_TILE = 128   # query rows per block of kernel A
+
+
+def _tile_plan(gb: int, s: int, h: int) -> int:
+    """Query rows per block of kernel A, one block per (q-tile, head, gb)
+    and one block per SM: 128, two consumer warpgroups that take turns on
+    the tensor cores, at every shape.  Where that gives fewer blocks than
+    SMs (GB = 1, S = 640: 80), it runs in one partial wave; why no smaller
+    tile does better is in the source note of csrc/joint_attention.cu."""
+    return QUERY_TILE
+
+
 _SIZES = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-          + [ctypes.c_float, ctypes.c_void_p])
+          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ARGTYPES = [ctypes.c_void_p] * 8 + _SIZES
 _ARGTYPES_KV8 = [ctypes.c_void_p] * 10 + _SIZES
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """The kernel reads rows 16 bytes at a time: 8 bf16, or 16 int8."""
+    """TMA's terms: a 16-byte-aligned base, the head dim contiguous and
+    every other stride a multiple of 16 bytes (8 bf16, or 16 int8)."""
     per_16b = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(st % per_16b == 0 for st in x.stride()[:-1]))
@@ -123,21 +136,22 @@ def _launch(q, k_self, v_self, k_static, v_static, static_mask, col_scale,
             and _aligned(v_static)):
         k_static, v_static = _dense(k_static), _dense(v_static)
     out = torch.empty_like(q)
-    lib = cuda_build.load("joint_attention")
     ptrs = [q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
             k_static.data_ptr(), v_static.data_ptr(), mask.data_ptr(),
             None if scale is None else scale.data_ptr()]
     if kv_scales is None:
-        fn, argtypes = lib.echo_joint_attention_bf16, _ARGTYPES
+        fn = cuda_build.entry("joint_attention", "echo_joint_attention_bf16",
+                              _ARGTYPES)
     else:
         # the kernel indexes the (B, T, H) scales densely
         deq = [x.float().contiguous() for x in kv_scales]
         ptrs += [x.data_ptr() for x in deq]
-        fn, argtypes = lib.echo_joint_attention_kv8, _ARGTYPES_KV8
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn = cuda_build.entry("joint_attention", "echo_joint_attention_kv8",
+                              _ARGTYPES_KV8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*ptrs, out.data_ptr(), gb, s, h, dh, b, t, *q.stride()[:3],
-            *k_static.stride()[:3], float(sm_scale), stream)
+            *k_static.stride()[:3], float(sm_scale), _tile_plan(gb, s, h),
+            stream)
     cuda_build.check(rc, "joint_attention")
     # the temporaries made here may be freed once this returns: the caching
     # allocator hands their memory only to work queued later on this stream

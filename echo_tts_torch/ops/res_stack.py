@@ -141,9 +141,7 @@ def _launch(x: torch.Tensor, weights: ResStackWeights,
     if not xk.is_contiguous() or xk.data_ptr() % 16:
         xk = xk.clone(memory_format=torch.contiguous_format)
     out = torch.empty_like(xk)
-    lib = cuda_build.load("res_stack")
-    fn = lib.echo_res_stack_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_build.entry("res_stack", "echo_res_stack_bf16", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xk.data_ptr(), out.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
             a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), a2.data_ptr(),

@@ -16,8 +16,8 @@ for the device-busy time (the union of every kernel, copy and set interval
 the profiler saw).  The wall times come first because the profiler's host
 work, and the tracing it leaves attached after its first use, would
 inflate them.  It prints both, the idle share 1 - busy / median wall, and
-the TOP kernels that took the most device time; the two hand-written kernels
-are named so their share can be read off.  The last line is one JSON
+the TOP kernels that took the most device time; the hand-written kernels
+(and kernel C's pre-pass) are named so their share can be read off.  The last line is one JSON
 object with those numbers.
 """
 from __future__ import annotations
@@ -47,7 +47,8 @@ REPS = 5    # unprofiled runs of each stage (host-bound stages vary run to run)
 TOP = 12    # kernels listed per stage
 KERNELS = {"joint_attention_kernel": "joint_attention (csrc)",
            "res_stack_kernel": "res_stack (csrc)",
-           "int8_matmul_kernel": "int8_matmul (csrc)"}
+           "int8_matmul_kernel": "int8_matmul (csrc)",
+           "int8_quantize_rows_kernel": "int8_matmul pre-pass (csrc)"}
 
 
 def _label(name: str) -> str:

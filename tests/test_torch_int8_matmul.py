@@ -15,6 +15,7 @@ import torch
 from echo_tts_tpu.ops import quant as jq
 from echo_tts_tpu.ops.pallas.int8_matmul import int8_matmul_fused as j_fused
 
+from echo_tts_torch.ops import cuda_build
 from echo_tts_torch.ops import int8_matmul as im
 from echo_tts_torch.ops import quant as tq
 
@@ -41,6 +42,65 @@ def test_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(
         got.numpy(), im.int8_matmul_plain(torch.from_numpy(x), w8, s).numpy())
+
+
+def test_prepass_then_int32_product_equals_plain():
+    """Kernel C's two stages in plain form: the pre-pass (`quantize_last`:
+    x quantized once, its row scales), then the exact integer product and
+    the rescale in the kernel's order, equal `int8_matmul_plain` bit for
+    bit and the JAX Pallas kernel in interpret mode within 1e-5.  Rows: the
+    shapes of test_plain_matches_pallas_interpret, with an all-zero row
+    (the 1e-12 scale floor) and a row of rounding ties (amax 127, so the
+    scale is 1 and x / scale lands on k + 1/2: half to even)."""
+    x, w = _operands(21, 128, 256, 256)
+    ties = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, -3.5],
+                    dtype=np.float32)
+    x[1, 0] = np.resize(ties, 256)
+    x[1, 0, 0] = 127.0
+    w8, ws = tq.quantize_weight_int8(torch.from_numpy(w.T.copy()))
+    xt = torch.from_numpy(x)
+
+    xq, x_scale = im.quantize_last(xt, 127.0)
+    assert float(x_scale[1, 0]) == 1.0
+    assert float(x_scale[0, 0]) == float(np.float32(1e-12) / np.float32(127))
+    assert not xq[0, 0].any()
+    np.testing.assert_array_equal(xq[1, 0, 1:9].numpy(),
+                                  [2, 2, 0, -2, -2, 4, -4, 0])
+    acc = xq.to(torch.int64) @ w8.to(torch.int64).t()
+    assert acc.abs().max() < 2 ** 31          # the kernel's int32 is exact
+    got = acc.float() * x_scale[..., None] * ws
+    np.testing.assert_array_equal(
+        got.numpy(), im.int8_matmul_plain(xt, w8, ws, torch.float32).numpy())
+
+    qw = jq.quantize_weight_int8(jnp.asarray(w))
+    want = j_fused(jnp.asarray(x), qw["q8"], qw["s"], interpret=True,
+                   out_dtype=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+# every (M, K, N) the full-width W8A8 DiT gives kernel C (chip_smoke.py)
+MAIN_PATH_SHAPES = [(1920, 2048, 5888), (1920, 2048, 2048), (1920, 5888, 2048),
+                    (640, 2048, 5888), (640, 2048, 2048), (640, 5888, 2048)]
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_PATH_SHAPES)
+def test_tile_plan_covers_and_fills(m, k, n):
+    """Kernel C's tile plan at each main-path shape: a tile the kernel
+    takes; its blocks, one per tile, cover every output row and column
+    exactly once (K is not split).  A plan with fewer blocks than SMs runs
+    in one partial wave, and halving its tile in either direction would
+    give more blocks than SMs (the source note's reason)."""
+    bm, bn = im._tile_plan(m, k, n)
+    assert bm == im.TILE_M and bn in (128, 256)
+    for size, tile in ((m, bm), (n, bn)):
+        cover = np.zeros(size, dtype=int)
+        for start in range(0, size, tile):
+            cover[start:start + tile] += 1
+        assert (cover == 1).all()
+    tiles = -(-m // bm) * -(-n // bn)
+    if tiles < cuda_build.SMS:
+        assert min(-(-m // (bm // 2)) * -(-n // bn),
+                   -(-m // bm) * -(-n // (bn // 2))) > cuda_build.SMS
 
 
 @pytest.mark.parametrize("m,k,n", [

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from echo_tts_tpu.ops import quant as jq
 from echo_tts_tpu.ops.pallas.joint_attention import fused_joint_attention as j_fused
 
+from echo_tts_torch.ops import cuda_build
 from echo_tts_torch.ops import joint_attention as ja
 from echo_tts_torch.ops import quant as tq
 
@@ -108,6 +109,32 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ja.fused_joint_attention(*args[:3], args[3].to(torch.int8),
                                  args[4].to(torch.int8), args[5], sm_scale=0.1,
                                  kv_scales=(scales[0][:, :8], scales[1]))
+
+
+@pytest.mark.parametrize("gb", [1, 3])
+@pytest.mark.parametrize("t", [778, 2368])
+@pytest.mark.parametrize("s", [640, 1280])
+def test_tile_plan_covers_and_fills(gb, t, s):
+    """Kernel A's query tile at the main path's shapes (H = 16; GB = 3 on
+    CFG steps, 1 else; T = 778 for a short prompt with a 2 s voice, 2368
+    for the longest; S = 640 latents, 1280 for two): a tile the kernel
+    takes (T does not enter the plan: every block walks all of [self |
+    static]); the (q-tile, h, gb) blocks cover every output row exactly
+    once; a plan with fewer blocks than SMs runs in one partial wave, and
+    halving its tile would give more blocks than SMs (the source note's
+    reason)."""
+    h = 16
+    bq = ja._tile_plan(gb, s, h)
+    assert bq == ja.QUERY_TILE
+    cover = np.zeros((gb, s, h), dtype=int)
+    for g in range(gb):
+        for start in range(0, s, bq):
+            for head in range(h):
+                cover[g, start:start + bq, head] += 1
+    assert (cover == 1).all()
+    blocks = -(-s // bq) * h * gb
+    if blocks < cuda_build.SMS:
+        assert -(-s // (bq // 2)) * h * gb > cuda_build.SMS
 
 
 def test_kernel_launch_needs_cuda():
