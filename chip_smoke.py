@@ -21,11 +21,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      attention with bf16 and with int8 static K/V, the residual stack, and
      the W8A8 matmul (fp32 output within 1e-5 of the plain version, bf16
      output rel-RMS); max-abs and rel-RMS error against the bound rel-RMS
-     <= 1e-2 (for the residual stack also over the first tile alone);
-     kernel / plain / library device times (torch.profiler's sum of the
-     device intervals the calls queue; kernel C's pre-pass and product
-     together), the host microseconds per wrapper call, and the card's
-     bound for the same work;
+     <= 1e-2 (for the residual stack also over its first row tile
+     alone); kernel / plain / library device times (torch.profiler's sum
+     of the device intervals the calls queue; kernel C's pre-pass and
+     product together; the residual stack's three unit launches
+     together), the host microseconds per wrapper call, the card's bound
+     for the same work and the kernel's share of it; for the residual
+     stack also the codec's unrolled path (three residual_unit calls) as
+     a yardstick;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 With --kernels-only it skips phase 3 and prints one {"cases": ...} line
 after phase 4 instead, so that two trees' kernels can be timed in one call.
@@ -155,7 +158,7 @@ def phase_build():
         f"wall {time.perf_counter() - t0:.1f} s")
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
         cuda_build.load(name)
 
@@ -247,6 +250,7 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
 
 def res_stack_case(c: int, length: int, approx: bool, seed: int):
     import torch
+    from echo_tts_torch.models.dac.conv import residual_unit
     from echo_tts_torch.ops import res_stack as rs
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -257,9 +261,9 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     x = rnd((1, length, c), 0.5)
     w1 = rnd((3, 7, c, c), (7 * c) ** -0.5)
     w2 = rnd((3, c, c), c ** -0.5)
-    # biases large enough that a kernel which let the context before the
-    # sequence start drift from zero would miss the bound on the first
-    # tile (tests/test_torch_res_stack.py holds that margin)
+    # biases large enough that a kernel whose context before the sequence
+    # start were not zero at each unit's k7 input would miss the bound on
+    # the first tile (tests/test_torch_res_stack.py holds that margin)
     b1, b2 = rnd((3, c), 0.1), rnd((3, c), 0.1)
     a1 = (1.0 + 0.1 * torch.randn((3, c), generator=g, device=dev)).to(torch.bfloat16)
     a2 = (1.0 + 0.1 * torch.randn((3, c), generator=g, device=dev)).to(torch.bfloat16)
@@ -270,10 +274,13 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     torch.cuda.synchronize()
     ref = rs.res_stack_plain(x, *args, approx_snake=approx)
     max_abs, rel = errors(out, ref)
-    # the first block's frames on their own: zeroing the context before the
-    # sequence start after each unit touches only these, and the whole-L
-    # error would dilute a fault there below any bound
-    head = rs.HALO + rs.block_length(weights.kernel_layout()[0])
+    # the first row tile on its own: the context before the sequence start
+    # touches only the first 78 frames, and the whole-L error would dilute
+    # a fault there below any bound.  (A tree from before the per-unit
+    # kernel has no tile_plan: there the first block and its context.)
+    cp = weights.kernel_layout()[0]
+    head = (rs.tile_plan(cp)["bm"] if hasattr(rs, "tile_plan")
+            else rs.HALO + rs.block_length(cp))
     _, rel_head = errors(out[:, :head], ref[:, :head])
     if rel > REL_RMS_BOUND or rel_head > REL_RMS_BOUND:
         raise AssertionError(f"res stack C={c} L={length} approx={approx}: "
@@ -285,17 +292,31 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     kernel_ms = kernel["ms"]
     plain_ms = timed(lambda: rs.res_stack_plain(x, *args, approx_snake=approx),
                      max(3, reps // 5))["ms"]
+
+    # yardstick only, not a library call for the same function: the codec's
+    # unrolled path (three residual_unit calls on cuBLAS/ATen), which it
+    # runs above C = 384
+    def unrolled():
+        y = x
+        for u, d in enumerate(rs.DILATIONS):
+            y = residual_unit(y, a1[u], w1[u], b1[u], a2[u], w2[u][None],
+                              b2[u], d, approx_snake=approx)
+        return y
+
+    unrolled_ms = timed(unrolled, max(3, reps // 5))["ms"]
     flops = 3 * 2.0 * 8 * c * c * length
     nbytes = 2 * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
     b_ms, b_by = bound(flops, nbytes)
     res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}",
                max_abs_err=max_abs, rel_rms=max(rel, rel_head), ms=kernel_ms,
                host_us=kernel["host_us"], plain_ms=plain_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by)
+               unrolled_ms=unrolled_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / kernel_ms)
     log(f"  res_stack {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
         f" first {head} frames {rel_head:.3e} (bound {REL_RMS_BOUND}) kernel_ms "
         f"{kernel_ms:.4f} host_us {kernel['host_us']:.1f} plain_ms "
-        f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        f"{plain_ms:.4f} unrolled_ms {unrolled_ms:.4f} bound_ms {b_ms:.4f} "
+        f"({b_by}), {100 * b_ms / kernel_ms:.1f} % of the bound")
     return res
 
 
@@ -623,11 +644,14 @@ def main(argv) -> int:
             kv8={k: att8[0][k] for k in ("shape", "ms", "host_us", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "rel_rms")}),
-        # C=96 with the serving decoder's snake
+        # C=96 with the serving decoder's snake; launches count wrapper
+        # calls, one per three-unit stack (three kernel launches each)
         kernel_entry(
             "res_stack", "echo_tts_torch/csrc/res_stack.cu",
             "echo_tts_tpu/ops/pallas/res_stack.py:60 (_res_stack_kernel)",
-            rst, rst[0], launches["res_stack"]),
+            rst, rst[0], launches["res_stack"],
+            unrolled_ms=rst[0]["unrolled_ms"],
+            bound_share=rst[0]["bound_share"]),
         # M=1920 (a CFG step), w1/w3 (2048 -> 5888); max_abs_err is the
         # fp32 output's
         kernel_entry(

@@ -1,11 +1,16 @@
 """The codec's three dilated residual units: plain version and the wrapper
-of the hand-written Hopper kernel (csrc/res_stack.cu).
+of the hand-written Hopper kernel (csrc/res_stack.cu, kernel B).
 
-Counterpart of echo_tts_tpu/ops/pallas/res_stack.py.  The kernel replaces
-`_res_stack_kernel`; its design (one block per L-tile that reads its own
-78-frame context, weights from L2, the k7 conv's output kept in registers
-as the k1 conv's input) and what bounds it are in the source note of the
-.cu file.
+Counterpart of echo_tts_tpu/ops/pallas/res_stack.py; the kernel replaces
+`_res_stack_kernel`.  What bounds it on the H100 is the bf16 tensor-core
+rate (2 * 8 * C^2 FLOP per frame and unit); the design, in the .cu file's
+source note: one launch per unit, so that a block of BM rows needs only
+its own 6 * d frames of context; snake1 of the tile in shared memory; the
+k7 and k1 convs on wgmma with the rows (shifted by tap * d) from shared
+memory through ldmatrix and the weights streamed by TMA through a ring of
+stages, each weight byte serving BM rows; the snakes as passes over the
+tile, outside the matrix loop.  `tile_plan` is that kernel's plan, in
+Python, so that the CPU tests can check it.
 
 `fused_res_stack` takes the plain version (three residual units at the
 kernel's rounding points) for CPU tensors and launches the kernel for CUDA
@@ -27,10 +32,10 @@ from .activations import sin2_poly
 # Canonical dilation schedule of the codec's residual units
 # (reference: autoencoder.py:887-891).
 DILATIONS = (1, 3, 9)
-HALO = 6 * sum(DILATIONS)                 # 78 frames of left context
+HALO = 6 * sum(DILATIONS)                 # the stack's 78 frames of left context
 KERNEL_WIDTHS = (64, 96, 128, 192, 256, 384)  # instantiated in res_stack.cu
 SMEM_LIMIT = 232448                        # bytes a block may use on sm_90
-_PAD = 8                                   # bf16 row padding in the kernel
+SMEM_SM = 233472                           # an SM's, of which 1024 per block reserved
 
 
 def res_stack_eligible(x: torch.Tensor) -> bool:
@@ -50,29 +55,77 @@ def _snake_f32(v: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tens
     return (vf + (1.0 / (af + 1e-9)) * s2).to(v.dtype)
 
 
-def res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx_snake: bool = False):
-    """Three residual units (models/dac/conv.py:residual_unit) at the Pallas
+def residual_unit_plain(x, w1, b1, a1, w2, b2, a2, dil: int,
+                        approx_snake: bool = False):
+    """One residual unit (models/dac/conv.py:residual_unit) at the Pallas
     kernel's rounding points (res_stack.py:90-111), which the CUDA kernel
     keeps: snake in fp32 then cast; each conv from working-dtype inputs with
     fp32 accumulation, + bias, then cast; the residual add in the working
-    dtype.  In fp32 this is exactly the unrolled `residual_unit`s."""
+    dtype.  w1 (7, C_in, C_out), w2 (C_in, C_out), vectors (C,).  In fp32
+    this is exactly `residual_unit`."""
     dt, length = x.dtype, x.shape[1]
+    y = F.pad(_snake_f32(x, a1, approx_snake), (0, 0, 6 * dil, 0)).float()
+    w = w1.float()
+    z = y[:, 0:length] @ w[0]
+    for k in range(1, 7):
+        z = z + y[:, k * dil:k * dil + length] @ w[k]
+    z = _snake_f32((z + b1.float()).to(dt), a2, approx_snake)
+    return x + (z.float() @ w2.float() + b2.float()).to(dt)
+
+
+def res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx_snake: bool = False):
+    """The three units, d = 1, 3, 9, one after the other, as the kernel runs
+    them (one launch each); weights stacked over the unit axis."""
     for u, dil in enumerate(DILATIONS):
-        y = F.pad(_snake_f32(x, a1[u], approx_snake), (0, 0, 6 * dil, 0)).float()
-        w = w1[u].float()
-        z = y[:, 0:length] @ w[0]
-        for k in range(1, 7):
-            z = z + y[:, k * dil:k * dil + length] @ w[k]
-        z = _snake_f32((z + b1[u].float()).to(dt), a2[u], approx_snake)
-        x = x + (z.float() @ w2[u].float() + b2[u].float()).to(dt)
+        x = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u], a2[u],
+                                dil, approx_snake)
     return x
 
 
-def block_length(c: int) -> int:
-    """Frames per block: the largest multiple of 16 whose tile plus its
-    78-frame context fits twice (X and snake(X)) in shared memory."""
-    rows = SMEM_LIMIT // (2 * (c + _PAD) * 2)
-    return min(1024, (rows - HALO) // 16 * 16)
+def tile_plan(c: int) -> dict:
+    """The kernel's plan at kernel width c (csrc/res_stack.cu `Plan`):
+    `bm` rows a block (two warpgroups of 64 rows and every output channel,
+    or at C > 256 one 64-row tile split over C_out, `ns` = 2, so that each
+    warpgroup holds C / ns fp32 accumulators a thread); C_in padded to
+    `kp`, whole 64-channel panels; a ring of `stages` weight panels of
+    `stage_bytes` (C_out rows of 64 bf16), as many as fit, at most 4,
+    beside the tile buffer at the largest dilation, within `smem_budget`:
+    a block's limit, or half an SM's shared memory where an SM holds
+    `blocks_per_sm` = 2 blocks (C <= 128, whose accumulators fit the 128
+    registers a thread that leaves)."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"C={c} is not one of the kernel's widths "
+                         f"{KERNEL_WIDTHS}")
+    ns = 2 if c > 256 else 1
+    bm = 64 * (2 // ns)
+    stage = c * 128
+    per_sm = 2 if c <= 128 else 1
+    budget = SMEM_LIMIT if per_sm == 1 else SMEM_SM // per_sm - 1024
+    y_max = (bm + 6 * max(DILATIONS)) * (c + 8) * 2
+    stages = min(4, (budget - 1024 - y_max - 16 * c - 64) // stage)
+    return dict(bm=bm, ns=ns, kp=-(-c // 64) * 64, stages=stages,
+                stage_bytes=stage, blocks_per_sm=per_sm, smem_budget=budget)
+
+
+def smem_bytes(c: int, dil: int) -> int:
+    """Dynamic shared memory of one block of the unit with dilation dil:
+    1024 for alignment, the weight ring, the tile with its 6 * dil context
+    rows (bf16, rows padded to c + 8), both snakes' alpha and 1 / (alpha +
+    1e-9) in fp32, the ring's two mbarriers a stage."""
+    p = tile_plan(c)
+    return (1024 + p["stages"] * p["stage_bytes"]
+            + (p["bm"] + 6 * dil) * (c + 8) * 2 + 16 * c
+            + 2 * p["stages"] * 8)
+
+
+def unit_blocks(c: int, length: int, dil: int) -> list:
+    """The blocks of the launch of the unit with dilation dil, in grid
+    order: (first row read, first output row, output rows).  A block reads
+    its rows and the 6 * dil before them (zero before the sequence
+    start), and the kernel's tile buffer holds bm + 6 * dil rows."""
+    bm = tile_plan(c)["bm"]
+    return [(r0 - 6 * dil, r0, min(bm, length - r0))
+            for r0 in range(0, length, bm)]
 
 
 class ResStackWeights:
@@ -94,8 +147,10 @@ class ResStackWeights:
 
     def kernel_layout(self) -> tuple:
         """(cp, w1t, w2t, b1, a1, b2, a2): the width the kernel runs at, the
-        convs (3, 7, Cout, Cin) and (3, Cout, Cin) bf16 (the mma B fragments
-        are contiguous pairs of C_in), the vectors (3, cp) fp32."""
+        convs (3, 7, cp, kp) and (3, cp, kp) bf16 as (unit, [tap,] C_out,
+        C_in), C_in zero-padded to whole 64-channel panels (`tile_plan`'s
+        kp: the K-major rows TMA loads for wgmma's B), the vectors (3, cp)
+        fp32."""
         if self._kernel is None:
             w1, w2 = self.w1, self.w2
             c = w1.shape[-1]
@@ -112,16 +167,16 @@ class ResStackWeights:
                                  f"{tuple(w2.shape)} or biases/alphas do "
                                  f"not match C={c}")
             cp = next(w for w in KERNEL_WIDTHS if w >= c)
-            pad = cp - c
+            pad, kpad = cp - c, tile_plan(cp)["kp"] - c
             self._kernel = (
                 cp,
-                F.pad(w1, (0, pad, 0, pad)).transpose(2, 3).contiguous(),
-                F.pad(w2, (0, pad, 0, pad)).transpose(1, 2).contiguous(),
+                F.pad(w1, (0, pad, 0, kpad)).transpose(2, 3).contiguous(),
+                F.pad(w2, (0, pad, 0, kpad)).transpose(1, 2).contiguous(),
                 *(F.pad(v.float(), (0, pad)).contiguous() for v in vecs))
         return self._kernel
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _launch(x: torch.Tensor, weights: ResStackWeights,
@@ -140,13 +195,15 @@ def _launch(x: torch.Tensor, weights: ResStackWeights,
     xk = F.pad(x, (0, pad)) if pad else x
     if not xk.is_contiguous() or xk.data_ptr() % 16:
         xk = xk.clone(memory_format=torch.contiguous_format)
-    out = torch.empty_like(xk)
+    # the three units run x -> out -> tmp -> out
+    out, tmp = torch.empty_like(xk), torch.empty_like(xk)
+    plan = tile_plan(cp)
     fn = cuda_build.entry("res_stack", "echo_res_stack_bf16", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(xk.data_ptr(), out.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-            a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), a2.data_ptr(),
-            batch, length, cp, block_length(cp), int(bool(approx_snake)),
-            stream)
+    rc = fn(xk.data_ptr(), tmp.data_ptr(), out.data_ptr(), w1t.data_ptr(),
+            b1.data_ptr(), a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+            a2.data_ptr(), batch, length, cp, plan["bm"], plan["stages"],
+            int(bool(approx_snake)), stream)
     cuda_build.check(rc, "res_stack")
     fused_res_stack.launches += 1
     return out[..., :c] if pad else out
@@ -156,8 +213,9 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
                     approx_snake: bool = False) -> torch.Tensor:
     """Apply the three dilated residual units to x (B, L, C).
 
-    CPU tensors run `res_stack_plain`; CUDA tensors launch the kernel and
-    count the launch in `fused_res_stack.launches`."""
+    CPU tensors run `res_stack_plain`; CUDA tensors launch the kernel, one
+    launch per unit, and count the call (one per stack) in
+    `fused_res_stack.launches`."""
     if x.device.type == "cpu":
         return res_stack_plain(x, *weights.plain_args(), approx_snake)
     if x.device.type != "cuda":

@@ -46,7 +46,7 @@ TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
 REPS = 5    # unprofiled runs of each stage (host-bound stages vary run to run)
 TOP = 12    # kernels listed per stage
 KERNELS = {"joint_attention_kernel": "joint_attention (csrc)",
-           "res_stack_kernel": "res_stack (csrc)",
+           "res_unit_kernel": "res_stack (csrc)",
            "int8_matmul_kernel": "int8_matmul (csrc)",
            "int8_quantize_rows_kernel": "int8_matmul pre-pass (csrc)"}
 

@@ -77,8 +77,11 @@ def test_batch_rows_are_independent():
 
 def test_gate_and_block_length():
     """The kernel gate (C <= 384, any length) only opens for CUDA tensors,
-    and every instantiated width fits its tile + 78-frame context twice in
-    a block's shared memory."""
+    and the kernel's tile plan holds at every instantiated width and
+    dilation: every row of a unit is produced by exactly one block, each
+    block reads 6 * d rows of context, and a block's shared memory (weight
+    ring, tile and context, barriers) fits the 232 448 bytes of an sm_90
+    block."""
     assert not rs.res_stack_eligible(torch.zeros((1, 8192, 96)))
     assert not rs.res_stack_eligible(torch.zeros((1, 300, 96)))
     # what the gate reads of a CUDA tensor: a short block at C = 96 takes
@@ -87,19 +90,66 @@ def test_gate_and_block_length():
     assert not rs.res_stack_eligible(
         SimpleNamespace(is_cuda=True, shape=(1, 8192, 512)))
     for c in rs.KERNEL_WIDTHS:
-        bl = rs.block_length(c)
-        assert bl >= 64 and bl % 16 == 0
-        assert 2 * (bl + rs.HALO) * (c + 8) * 2 <= rs.SMEM_LIMIT
+        plan = rs.tile_plan(c)
+        # two consumer warpgroups of 64 rows; each holds at most 128 fp32
+        # accumulators a thread (64 x C / ns)
+        assert plan["bm"] * plan["ns"] == 128 and c // plan["ns"] <= 256
+        assert plan["kp"] % 64 == 0 and 0 <= plan["kp"] - c < 64
+        assert 2 <= plan["stages"] <= 4
+        length = 5 * plan["bm"] + 7
+        for d in rs.DILATIONS:
+            assert rs.smem_bytes(c, d) <= plan["smem_budget"] <= rs.SMEM_LIMIT
+            assert (plan["blocks_per_sm"] * (plan["smem_budget"] + 1024)
+                    <= rs.SMEM_SM)
+            produced = np.zeros(length, dtype=int)
+            for first, r0, rows in rs.unit_blocks(c, length, d):
+                produced[r0:r0 + rows] += 1
+                assert r0 - first == 6 * d and rows <= plan["bm"]
+            assert (produced == 1).all()
+    with pytest.raises(ValueError):
+        rs.tile_plan(80)
+
+
+@pytest.mark.parametrize("length", [40, 300, 163840])
+@pytest.mark.parametrize("c", rs.KERNEL_WIDTHS)
+def test_tile_plan_covers_ragged_lengths(c, length):
+    """The grid covers [0, L) once at the lengths the codec and short
+    streaming blocks give, the last block ragged where L is not a multiple
+    of bm; that block's rows >= L are the ones the kernel masks."""
+    bm = rs.tile_plan(c)["bm"]
+    blocks = rs.unit_blocks(c, length, 9)
+    assert len(blocks) == -(-length // bm)
+    assert [r0 for _, r0, _ in blocks] == list(range(0, length, bm))
+    assert sum(rows for _, _, rows in blocks) == length
+    assert all(rows == bm for _, _, rows in blocks[:-1])
+    assert blocks[-1][2] == length - bm * (len(blocks) - 1)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_plain_stack_is_three_single_unit_calls(approx):
+    """The plain version is split per unit as the kernel is (one launch
+    each): the stack equals the three units applied in turn."""
+    rng = np.random.default_rng(11)
+    c, length = 64, 150
+    w1, b1, a1, w2, b2, a2 = _stacked(_units(rng, c))
+    x = torch.from_numpy(rng.standard_normal((1, length, c)).astype(np.float32))
+    want = x
+    for u, d in enumerate(rs.DILATIONS):
+        want = rs.residual_unit_plain(want, w1[u], b1[u], a1[u], w2[u], b2[u],
+                                      a2[u], d, approx)
+    got = rs.res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("c,length,approx", [(96, 300, True), (384, 40, False)])
 def test_first_tile_bound_sees_a_nonzero_context(c, length, approx):
-    """chip_smoke.py holds the kernel's first tile to rel-RMS 1e-2 of the
-    plain version at these short blocks, with its weight scales.  A kernel
-    that did not force the positions before the sequence start back to
-    zero after each unit would compute the units over a 78-frame context
-    that starts at zero and then drifts (bias, snake of the bias): that
-    fault must miss the bound by a wide margin."""
+    """chip_smoke.py holds the kernel's first row tile (`tile_plan`'s bm
+    rows, or all of a shorter block) to rel-RMS 1e-2 of the plain version
+    at these short blocks, with its weight scales.  A kernel whose
+    positions before the sequence start were not zero at every unit's k7
+    input (say, one that ran the three units over one shared 78-frame
+    context without forcing it back to zero, where a bias and the snake of
+    a bias drift) would miss that bound by a wide margin there."""
     rng = np.random.default_rng(c + length)
 
     def arr(shape, std, mean=0.0):
@@ -111,9 +161,10 @@ def test_first_tile_bound_sees_a_nonzero_context(c, length, approx):
     w = (arr((3, 7, c, c), (7 * c) ** -0.5), arr((3, c), 0.1),
          arr((3, c), 0.1, 1.0), arr((3, c, c), c ** -0.5), arr((3, c), 0.1),
          arr((3, c), 0.1, 1.0))
-    want = rs.res_stack_plain(x, *w, approx).float()
+    head = rs.tile_plan(c)["bm"]
+    want = rs.res_stack_plain(x, *w, approx).float()[:, :head]
     padded = torch.nn.functional.pad(x, (0, 0, rs.HALO, 0))
-    fault = rs.res_stack_plain(padded, *w, approx)[:, rs.HALO:].float()
+    fault = rs.res_stack_plain(padded, *w, approx)[:, rs.HALO:].float()[:, :head]
     rel = float((fault - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
     assert rel > 3e-2
 
