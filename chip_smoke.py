@@ -15,14 +15,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      modes, the W8A8 DiT from serve.models.load_models under
      ECHO_DIT_QUANT=int8 with kv_quant=True) through sample_pipeline /
      sample_pipeline_chunked, checking the audio and every kernel's launch
-     count, with stage times and RTF;
+     count, with stage times and RTF; a fifth, (e), streams that voice
+     through stream_synthesize on the growing schedule of 640 latents
+     ([40, 80, 160, 320, 40]), checking its chunks, its launch counts
+     (kernel B's history form apart) and its decode (an fp32 codec streams
+     the same latents within 0.05 max-abs of its one-shot decode; the
+     streamed bf16 audio is no farther from that fp32 decode than the
+     one-shot bf16 decode is, within 1.25x), with each chunk's arrival time,
+     time to first audio, streamed RTF and the playback stall; then the
+     blockwise sampler with the incremental latent prefix against the
+     re-encode, at reduced depth;
   4. each kernel against its plain PyTorch version on the card at the main
      path's shapes (and at ragged shapes shorter than one tile): joint
-     attention with bf16 and with int8 static K/V, the residual stack, and
-     the W8A8 matmul (fp32 output within 1e-5 of the plain version, bf16
-     output rel-RMS); max-abs and rel-RMS error against the bound rel-RMS
-     <= 1e-2 (for the residual stack also over its first row tile
-     alone); kernel / plain / library device times (torch.profiler's sum
+     attention with bf16 and with int8 static K/V, and at the streaming
+     shapes (latent-prefix columns, part or a whole tile masked); the
+     residual stack, one-shot and in its history form at streamed block
+     shapes (new history checked too, zero history bit-equal to the
+     one-shot kernel); and the W8A8 matmul (fp32 output within 1e-5 of the
+     plain version, bf16 output rel-RMS); max-abs and rel-RMS error against
+     the bound rel-RMS <= 1e-2 (for the residual stack also over its first
+     row tile alone); kernel / plain / library device times (torch.profiler's sum
      of the device intervals the calls queue; kernel C's pre-pass and
      product together; the residual stack's three unit launches
      together), the host microseconds per wrapper call, the card's bound
@@ -36,6 +48,7 @@ Imports nothing of JAX or of echo_tts_tpu.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -60,6 +73,20 @@ REL_RMS_BOUND = 1e-2   # bf16 kernel vs plain (PARITY.md: bf16 vs fp32 1.05e-2)
 VOICE = os.path.join(REPO, "tests", "data", "voice.wav")
 TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
         "bedtime story.")
+STREAM_TOTAL = 640          # request (e): growing_schedule(640)
+# Request (e)'s decode, held two ways.  An fp32 copy of the codec with the
+# residual stacks' plain version decodes the stream's latents streamed, on
+# the same schedule, and one-shot: the two agree within the JAX package's
+# streamed-against-one-shot bound (tests/test_streaming.py:108), which
+# tests the carried state at full width (kernel B's history form is held
+# to its plain version in phase 4).  In bf16 the seeded random codec
+# saturates its tanh and carries any rounding into sign flips, so that the
+# one-shot bf16 decode is itself ~0.15 rel-RMS from the fp32 one
+# (echo_tts_torch/tools/stream_checks.py): the streamed bf16 audio must be
+# no farther from the fp32 one-shot decode than STREAM_BF16_RATIO times
+# the one-shot bf16 decode is.
+JAX_STREAM_BOUND = 0.05
+STREAM_BF16_RATIO = 1.25
 LONG_TEXT = (
     "The lighthouse keeper climbed the spiral stairs every evening at "
     "dusk, counting the steps as his father had taught him, and lit the "
@@ -167,9 +194,13 @@ def phase_build():
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
+def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
+                   n_lat: int = 0, lat_valid: int = 0):
     """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
-    quantize_kv_int8 of the same bf16 K/V) and passes their scales."""
+    quantize_kv_int8 of the same bf16 K/V) and passes their scales.  With
+    n_lat, the static columns are [latent, text, speaker] as a streamed
+    block after the first has them, the latent columns from lat_valid on
+    masked in every row (positions at or past the block's start)."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
     from echo_tts_torch.ops import quant
@@ -185,11 +216,13 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     t_text = 768
     n_text = 96                       # real bytes of a short prompt
     text = torch.zeros((t,), dtype=torch.bool, device=dev)
-    text[:min(n_text, t_text)] = True
+    text[n_lat:n_lat + min(n_text, t_text)] = True
     spk = torch.zeros((t,), dtype=torch.bool, device=dev)
-    spk[t_text:] = True
-    cond = text | spk
-    rows = [cond, spk, text][:gb] if gb == 3 else [cond] * gb
+    spk[n_lat + t_text:] = True
+    lat = torch.zeros((t,), dtype=torch.bool, device=dev)
+    lat[:lat_valid] = True
+    cond = lat | text | spk
+    rows = ([cond, lat | spk, lat | text][:gb] if gb == 3 else [cond] * gb)
     mask = torch.stack(rows)          # CFG branches blank whole segments
     col_scale = torch.where(spk, 1.5, 1.0).float()
     sm = dh ** -0.5
@@ -210,7 +243,9 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     torch.cuda.synchronize()
     ref = ja.joint_attention_plain(*args, **kw)
     max_abs, rel = errors(out, ref)
-    name = f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} T={t}"
+    latent = f" latent {lat_valid}/{n_lat}" if n_lat else ""
+    name = (f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} "
+            f"T={t}{latent}")
     if rel > REL_RMS_BOUND:
         raise AssertionError(f"{name}: rel-RMS {rel:.3e} > {REL_RMS_BOUND}")
     kernel = timed(lambda: ja.fused_joint_attention(*args, **kw), 50)
@@ -236,7 +271,7 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
               + (2 * b * t * h * 4 if kv8 else 0) + gb * t + t * 4)
     b_ms, b_by = bound(flops, nbytes)
     res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}"
-               + (" int8 K/V" if kv8 else ""), max_abs_err=max_abs,
+               + (" int8 K/V" if kv8 else "") + latent, max_abs_err=max_abs,
                rel_rms=rel, ms=kernel_ms, host_us=kernel["host_us"],
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                bound_by=b_by)
@@ -248,9 +283,10 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False):
     return res
 
 
-def res_stack_case(c: int, length: int, approx: bool, seed: int):
+def res_stack_inputs(c: int, length: int, seed: int):
+    """(rnd, x, args, weights): kernel B's inputs at one shape, bf16 on the
+    card, and the generator-backed rnd(shape, std) that drew them."""
     import torch
-    from echo_tts_torch.models.dac.conv import residual_unit
     from echo_tts_torch.ops import res_stack as rs
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -268,7 +304,15 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
     a1 = (1.0 + 0.1 * torch.randn((3, c), generator=g, device=dev)).to(torch.bfloat16)
     a2 = (1.0 + 0.1 * torch.randn((3, c), generator=g, device=dev)).to(torch.bfloat16)
     args = (w1, b1, a1, w2, b2, a2)
-    weights = rs.ResStackWeights(*args)
+    return rnd, x, args, rs.ResStackWeights(*args)
+
+
+def res_stack_case(c: int, length: int, approx: bool, seed: int):
+    import torch
+    from echo_tts_torch.models.dac.conv import residual_unit
+    from echo_tts_torch.ops import res_stack as rs
+    _, x, args, weights = res_stack_inputs(c, length, seed)
+    w1, b1, a1, w2, b2, a2 = args
 
     out = rs.fused_res_stack(x, weights, approx_snake=approx)
     torch.cuda.synchronize()
@@ -317,6 +361,76 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
         f"{kernel_ms:.4f} host_us {kernel['host_us']:.1f} plain_ms "
         f"{plain_ms:.4f} unrolled_ms {unrolled_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}), {100 * b_ms / kernel_ms:.1f} % of the bound")
+    return res
+
+
+def res_stack_history_case(c: int, length: int, approx: bool, seed: int):
+    """Kernel B's history form at one streamed block's shape, with a random
+    non-zero history: the output over the whole block and over its first
+    row tile (where the history is read), and the new history, against
+    the plain version's; and zero history against the one-shot kernel,
+    bit for bit."""
+    import torch
+    from echo_tts_torch.models.dac.conv import residual_unit
+    from echo_tts_torch.ops import res_stack as rs
+    rnd, x, args, weights = res_stack_inputs(c, length, seed)
+    w1, b1, a1, w2, b2, a2 = args
+    hist = [rnd((1, 6 * d, c), 0.5) for d in rs.DILATIONS]
+    kw = dict(approx_snake=approx, history=hist)
+
+    out, new = rs.fused_res_stack(x, weights, **kw)
+    torch.cuda.synchronize()
+    ref, ref_new = rs.res_stack_plain(x, *args, approx, history=hist)
+    max_abs, rel = errors(out, ref)
+    head = rs.tile_plan(weights.kernel_layout()[0])["bm"]
+    _, rel_head = errors(out[:, :head], ref[:, :head])
+    rel_hist = max(errors(a, b)[1] for a, b in zip(new, ref_new))
+    zero_out, _ = rs.fused_res_stack(
+        x, weights, approx_snake=approx,
+        history=[torch.zeros_like(h) for h in hist])
+    bit_equal = torch.equal(zero_out, rs.fused_res_stack(x, weights,
+                                                         approx_snake=approx))
+    torch.cuda.synchronize()
+    name = f"res stack history C={c} L={length} approx={approx}"
+    if max(rel, rel_head, rel_hist) > REL_RMS_BOUND or not bit_equal:
+        raise AssertionError(
+            f"{name}: rel-RMS {rel:.3e}, first {head} frames {rel_head:.3e}, "
+            f"new history {rel_hist:.3e} (bound {REL_RMS_BOUND}); zero "
+            f"history bit-equal to the one-shot kernel: {bit_equal}")
+    reps = 5 if length > 4096 else 50
+    kernel = timed(lambda: rs.fused_res_stack(x, weights, **kw), reps)
+    plain_ms = timed(lambda: rs.res_stack_plain(x, *args, approx, history=hist),
+                     max(3, reps // 5))["ms"]
+
+    # yardstick only: the codec's unrolled units in their history form
+    # (three residual_unit calls on cuBLAS/ATen), its path above C = 384
+    def unrolled():
+        y = x
+        for u, d in enumerate(rs.DILATIONS):
+            y, _ = residual_unit(y, a1[u], w1[u], b1[u], a2[u], w2[u][None],
+                                 b2[u], d, approx_snake=approx, history=hist[u])
+        return y
+
+    unrolled_ms = timed(unrolled, max(3, reps // 5))["ms"]
+    flops = 3 * 2.0 * 8 * c * c * length
+    hist_rows = 6 * sum(rs.DILATIONS)
+    # x read, out written, the weights, the history read and written
+    nbytes = (2 * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
+              + 2 * hist_rows * c * 2)
+    b_ms, b_by = bound(flops, nbytes)
+    res = dict(shape=(f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}"
+                      " history"),
+               max_abs_err=max_abs, rel_rms=max(rel, rel_head, rel_hist),
+               rel_rms_history=rel_hist, zero_history_bit_equal=bit_equal,
+               ms=kernel["ms"], host_us=kernel["host_us"], plain_ms=plain_ms,
+               library_ms=None, unrolled_ms=unrolled_ms, bound_ms=b_ms,
+               bound_by=b_by, bound_share=b_ms / kernel["ms"])
+    log(f"  res_stack {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
+        f" first {head} frames {rel_head:.3e} new history {rel_hist:.3e} "
+        f"(bound {REL_RMS_BOUND}), zero history bit-equal {bit_equal}; "
+        f"kernel_ms {kernel['ms']:.4f} host_us {kernel['host_us']:.1f} "
+        f"plain_ms {plain_ms:.4f} unrolled_ms {unrolled_ms:.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}), {100 * b_ms / kernel['ms']:.1f} % of the bound")
     return res
 
 
@@ -387,6 +501,17 @@ def phase_kernels():
     att = [attention_case(gb, 640, t, seed=i) for i, (gb, t) in enumerate(
         [(3, 778), (1, 778), (3, 2368), (1, 2368)])]
     att.append(attention_case(3, 1280, 778, seed=9))
+    # request (e)'s streaming shapes: its first block (no latent segment),
+    # its block of 320 at 280 (160 latent columns, 70 before the start)
+    # and of 80 at 40 (10); and a block of 320 at 280 in a 1280-latent
+    # stream, whose latent columns 128-255, a whole static tile, are
+    # masked in every row
+    att_stream = [attention_case(gb, s, t, seed=70 + i, n_lat=n_lat,
+                                 lat_valid=valid)
+                  for i, (gb, s, t, n_lat, valid) in enumerate(
+                      [(3, 40, 778, 0, 0), (3, 320, 938, 160, 70),
+                       (1, 80, 938, 160, 10), (3, 320, 1098, 320, 70)])]
+    att += att_stream
     # int8 static K/V at request (d)'s shapes (GB=3 and 1, T=778) and at
     # the longest static K/V
     att8 = [attention_case(gb, 640, t, seed=30 + i, kv8=True)
@@ -410,6 +535,14 @@ def phase_kernels():
                 (64, 1310720, False), (128, 655360, False),
                 (256, 163840, False), (96, 1310720, False),
                 (384, 163840, False), (96, 300, True), (384, 40, False)])]
+    # the history form at the decoder's shapes for blocks of 40 and 320
+    # latents (L = 256, 1024, 2048 frames a latent at C = 384, 192, 96),
+    # with sin2_poly, and an encoder-side shape (C = 64) with exact sin
+    rst += [res_stack_history_case(c, length, approx, seed=80 + i)
+            for i, (c, length, approx) in enumerate(
+                [(384, 10240, True), (192, 40960, True), (96, 81920, True),
+                 (384, 81920, True), (192, 327680, True), (96, 655360, True),
+                 (64, 2048, False)])]
     return att, att8, rst, mm
 
 
@@ -512,7 +645,8 @@ def phase_main_path():
     counters = {"joint_attention": (fused_joint_attention, "launches"),
                 "joint_attention_kv8": (fused_joint_attention, "launches_kv8"),
                 "int8_matmul": (int8_matmul_fused, "launches"),
-                "res_stack": (fused_res_stack, "launches")}
+                "res_stack": (fused_res_stack, "launches"),
+                "res_stack_stream": (fused_res_stack, "launches_stream")}
     launches = dict.fromkeys(counters, 0)
     request_stats = {}
     try:
@@ -532,7 +666,8 @@ def phase_main_path():
             want = {"joint_attention": 0 if int8_modes else attn,
                     "joint_attention_kv8": attn if int8_modes else 0,
                     "int8_matmul": n_int8_linears * attn if int8_modes else 0,
-                    "res_stack": 3 * n_samples + 3 * n_enc}
+                    "res_stack": 3 * n_samples + 3 * n_enc,
+                    "res_stack_stream": 0}
             if got != want:
                 raise AssertionError(f"{name}: launches {got}, want {want}")
             for shape, finite, peak in decoded[n_dec:]:
@@ -598,7 +733,163 @@ def phase_main_path():
         _, rel = errors(got, ref)
     log(f"  W8A8 + int8 K/V vs bf16, one dit_forward_static at GB=3 S=640 "
         f"T={kv[0].shape[2]}: rel-RMS {rel:.3e} (information only)")
+
+    got = request_stream(models, voice, counters, n_voice_chunks)
+    for k, v in got.items():
+        launches[k] += v
+    incremental_check(models, lat, mask, ids_t, tmask_t)
     return launches
+
+
+def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
+    """Request (e): stream_synthesize on the growing schedule of
+    STREAM_TOTAL latents with voice.wav.  Checks the chunks, the launch
+    counts (24 x 40 attention per block, kernel B's history form three
+    times per block, its one-shot form three times per encoded speaker
+    chunk) and the concatenated audio against the one-shot ae_decode of
+    the same latents (see JAX_STREAM_BOUND and STREAM_BF16_RATIO); prints
+    each chunk's arrival on the host clock, the time to first audio, the
+    streamed RTF and the playback stall of a listener who starts at first
+    audio.  Returns the launch counts."""
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS, growing_schedule, stream_synthesize
+    from echo_tts_torch.models.dac.dac import pca_unwhiten
+    from echo_tts_torch.pipeline import pipeline as pl
+    from echo_tts_torch.serve import streaming as sst
+    from echo_tts_torch.tools.stream_checks import decode_pair, no_tf32
+
+    schedule = growing_schedule(STREAM_TOTAL)
+    cfg = models.dit_cfg
+    spl, rate = models.dac_cfg.frame_length, models.dac_cfg.sample_rate
+    blocks, decode_ms = [], []
+    block_decode = sst.ae_decode_block
+
+    def recording_decode(m, state, latents):
+        # the latents each block decodes, and the decode's own wall time
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = block_decode(m, state, latents)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        blocks.append(latents.clone())
+        return out
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    sst.ae_decode_block = recording_decode
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, arrivals = [], []
+        for chunk in stream_synthesize(models, TEXT, voice,
+                                       chunk_sizes=schedule, seed=5):
+            arrivals.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+    finally:
+        sst.ae_decode_block = block_decode
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    n = len(schedule)
+    want = {"joint_attention": cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n,
+            "joint_attention_kv8": 0, "int8_matmul": 0,
+            "res_stack": 3 * n_voice_chunks, "res_stack_stream": 3 * n}
+    name = f"e: stream_synthesize, voice.wav, chunk_sizes={schedule}"
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+    ends = list(np.cumsum(schedule))
+    if ([c.index for c in chunks] != list(range(n))
+            or [(c.latent_start, c.latent_end) for c in chunks]
+            != list(zip([0] + ends[:-1], ends))
+            or [c.is_last for c in chunks] != [False] * (n - 1) + [True]):
+        raise AssertionError(f"{name}: chunks {[(c.index, c.latent_start, c.latent_end, c.is_last) for c in chunks]}")
+    for c, size in zip(chunks, schedule):
+        if (c.audio.shape != (1, size * spl) or not np.isfinite(c.audio).all()
+                or float(np.abs(c.audio).max()) <= 1e-4):
+            raise AssertionError(f"{name}: chunk {c.index} audio "
+                                 f"{c.audio.shape}, peak "
+                                 f"{float(np.abs(c.audio).max())}")
+    streamed = torch.from_numpy(np.concatenate([c.audio for c in chunks], -1))
+    latents = torch.cat(blocks, dim=1)
+    one_shot = pl.ae_decode(models, latents).cpu()
+    with no_tf32():
+        one32, str32, _, _ = decode_pair(
+            copy.deepcopy(models.dac).float(),
+            pca_unwhiten(latents.float(), models.pca), schedule, plain=True)
+    one32, str32 = one32[..., 0].cpu(), str32[..., 0].cpu()
+    fp32_max_abs, fp32_rel = errors(str32, one32)
+    bf16_max_abs, bf16_rel = errors(streamed, one_shot)
+    err_one, err_stream = errors(one_shot, one32)[1], errors(streamed, one32)[1]
+    # below 1e-3 an error is rounding at any precision, not a fault
+    ratio = err_stream / max(err_one, 1e-3)
+    if fp32_max_abs >= JAX_STREAM_BOUND or ratio > STREAM_BF16_RATIO:
+        raise AssertionError(
+            f"{name}: fp32 codec, streamed vs one-shot max-abs "
+            f"{fp32_max_abs:.3e} (bound {JAX_STREAM_BOUND}); bf16 streamed "
+            f"vs the fp32 one-shot decode rel-RMS {err_stream:.4f}, "
+            f"{ratio:.3f}x the bf16 one-shot decode's "
+            f"{err_one:.4f} (bound {STREAM_BF16_RATIO}x)")
+    # playback from first audio: chunk i plays when it has arrived and the
+    # one before it has played out
+    secs = [c.audio.shape[1] / rate for c in chunks]
+    play_end, stall = arrivals[0], 0.0
+    for arrival, dur in zip(arrivals, secs):
+        stall += max(0.0, arrival - play_end)
+        play_end = max(play_end, arrival) + dur
+    wall, audio_s = arrivals[-1], sum(secs)
+    log(f"  request {name}: {wall * 1e3:.1f} ms wall, {audio_s:.2f} s audio; "
+        f"launches {got}; fp32 codec (plain stacks), streamed vs one-shot: "
+        f"max-abs {fp32_max_abs:.3e} (bound {JAX_STREAM_BOUND}), rel-RMS "
+        f"{fp32_rel:.3e}; bf16 against the fp32 one-shot decode, rel-RMS: "
+        f"streamed {err_stream:.4f}, one-shot {err_one:.4f}, "
+        f"{ratio:.3f}x (bound {STREAM_BF16_RATIO}x); bf16 "
+        f"streamed vs one-shot: max-abs {bf16_max_abs:.3e}, rel-RMS "
+        f"{bf16_rel:.4f}")
+    for c, arrival, cum in zip(chunks, arrivals, np.cumsum(secs)):
+        log(f"    chunk {c.index} ({c.latent_end - c.latent_start} latents): "
+            f"arrived {arrival * 1e3:.1f} ms, audio so far {cum:.3f} s")
+    log(f"  request e: TTFA {arrivals[0] * 1e3:.1f} ms, streamed RTF "
+        f"{audio_s / wall:.3f}x, playback stall {stall * 1e3:.1f} ms after "
+        f"first audio; decode_ms per block {[round(v, 1) for v in decode_ms]}")
+    return got
+
+
+def incremental_check(models, lat, mask, ids, tmask) -> None:
+    """The blockwise sampler at full width with the incremental latent
+    prefix against the re-encode, on the same seeded noise (bf16 bound
+    rel-RMS 1e-2), and a check that the prefix reaches the later blocks at
+    all.  Depth reduced to 4 steps on blocks [40, 40, 80], so that the run
+    stays within its time limit."""
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.sampler.blockwise import (
+        sample_blockwise_euler_cfg_independent_guidances as blockwise)
+    dev = models.device
+    blocks = [40, 40, 80]
+    g = torch.Generator(device=dev).manual_seed(90)
+    noises = [torch.randn((1, b, models.dit_cfg.latent_size), generator=g,
+                          device=dev) for b in blocks]
+    kw = dict(SAMPLER_DEFAULTS, num_steps=4)
+    kw.pop("sequence_length")
+    spk, smask = torch.from_numpy(lat).to(dev), torch.from_numpy(mask).to(dev)
+    def run(noise, inc):
+        return blockwise(models.dit, spk, smask, ids, tmask, block_sizes=blocks,
+                         dtype=models.dtype, initial_noises=noise,
+                         incremental_latent=inc, **kw)
+
+    got = {inc: run(noises, inc) for inc in (True, False)}
+    _, rel = errors(got[True], got[False])
+    # the prefix is seen: a first block from half its noise moves the
+    # later blocks (a prefix masked out everywhere would leave them)
+    moved = run([noises[0] * 0.5] + noises[1:], False)
+    _, effect = errors(moved[:, blocks[0]:], got[False][:, blocks[0]:])
+    if rel > REL_RMS_BOUND or effect <= 1e-3:
+        raise AssertionError(f"incremental vs re-encoded latent prefix: "
+                             f"rel-RMS {rel:.3e} (bound {REL_RMS_BOUND}); "
+                             f"the prefix moves later blocks by {effect:.3e}")
+    log(f"  blockwise sampler, incremental vs re-encoded latent prefix "
+        f"(blocks {blocks}, num_steps 4: depth reduced to keep the run "
+        f"short): rel-RMS {rel:.3e} (bound {REL_RMS_BOUND}); a first block "
+        f"from half its noise moves the later blocks by rel-RMS "
+        f"{effect:.3e} (must exceed 1e-3)")
 
 
 def kernel_entry(name, source, replaces, cases, main, launches, **extra):
@@ -631,6 +922,8 @@ def main(argv) -> int:
                                         res_stack=rst, int8_matmul=mm)}),
               flush=True)
         return 0
+    rst_stream = next(r for r in rst if r["shape"] == "C=96 L=655360 "
+                      "snake=sin2_poly history")
     kernels = [
         # GB=3, S=640, T=778: request b's shape; the int8 K/V form at
         # request d's, with its own numbers and launch count
@@ -645,13 +938,22 @@ def main(argv) -> int:
                                          "library_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "rel_rms")}),
         # C=96 with the serving decoder's snake; launches count wrapper
-        # calls, one per three-unit stack (three kernel launches each)
+        # calls, one per three-unit stack (three kernel launches each), of
+        # the one-shot form and of the history form (request e); the
+        # history form's main case is the last decoder block of a
+        # 320-latent streamed block
         kernel_entry(
             "res_stack", "echo_tts_torch/csrc/res_stack.cu",
             "echo_tts_tpu/ops/pallas/res_stack.py:60 (_res_stack_kernel)",
-            rst, rst[0], launches["res_stack"],
+            rst, rst[0], launches["res_stack"] + launches["res_stack_stream"],
+            launches_oneshot=launches["res_stack"],
+            launches_stream=launches["res_stack_stream"],
             unrolled_ms=rst[0]["unrolled_ms"],
-            bound_share=rst[0]["bound_share"]),
+            bound_share=rst[0]["bound_share"],
+            stream={k: rst_stream[k] for k in (
+                "shape", "ms", "host_us", "plain_ms", "unrolled_ms",
+                "library_ms", "bound_ms", "bound_by", "bound_share",
+                "max_abs_err", "rel_rms")}),
         # M=1920 (a CFG step), w1/w3 (2048 -> 5888); max_abs_err is the
         # fp32 output's
         kernel_entry(

@@ -7,9 +7,11 @@ Layer map (each module mirrors its namesake in echo_tts_tpu/):
              (csrc/joint_attention.cu, csrc/res_stack.cu,
              csrc/int8_matmul.cu) with their plain versions and launch
              counters; the int8 quantization of the DiT and static K/V
-  sampler/   Euler CFG sampler
-  pipeline/  host text stack, DSP, audio IO, text->audio orchestration
-  serve/     the model cache and its quant mode (ECHO_DIT_QUANT)
+  sampler/   Euler CFG sampler, blockwise (streaming) sampler
+  pipeline/  host text stack, DSP, audio IO, text->audio orchestration,
+             streaming (block) encode and decode
+  serve/     the model cache and its quant mode (ECHO_DIT_QUANT);
+             stream_synthesize and its block schedules
   tools/     weight bridge from the JAX package's parameter trees; the
              device-time profile of the main path
 
@@ -24,12 +26,15 @@ from .pipeline.pipeline import (EchoModels, ae_decode, ae_encode,
                                 random_models, sample_pipeline,
                                 sample_pipeline_chunked)
 from .sampler.euler import sample_euler_cfg_independent_guidances
+from .serve.presets import growing_schedule
+from .serve.streaming import StreamChunk, stream_synthesize
 
 __all__ = [
     "DACConfig", "EchoDiTConfig", "EchoModels", "SAMPLER_DEFAULTS",
-    "ae_decode", "ae_encode", "base_dac_config", "base_dit_config",
-    "euler_sample_fn", "load_models_from_dir", "random_models",
+    "StreamChunk", "ae_decode", "ae_encode", "base_dac_config",
+    "base_dit_config", "euler_sample_fn", "growing_schedule",
+    "load_models_from_dir", "random_models",
     "sample_euler_cfg_independent_guidances",
-    "sample_pipeline", "sample_pipeline_chunked", "tiny_dac_config",
-    "tiny_dit_config",
+    "sample_pipeline", "sample_pipeline_chunked", "stream_synthesize",
+    "tiny_dac_config", "tiny_dit_config",
 ]

@@ -58,6 +58,16 @@
 // The tile plan and the shared-memory budget are mirrored in
 // ops/res_stack.py `tile_plan`, which the wrapper passes and this file
 // checks.
+// History form (streaming decode and encode): with hin/hout given, the
+// context rows before position 0 are the previous block's tail of snake1
+// of the unit's input, hin (batch, 6d, C), already snake1'd, copied into Y
+// as they are where the one-shot form writes zero.  The form is the
+// template parameter HIST, so the one-shot instances (HIST = false, hin
+// and hout null) compile exactly the kernel without it.  The new tail, the last 6d rows of [hin | snake1(x)], sits in
+// the last block's Y (rows [L - 6d, L), also when L < 6d), and that block
+// copies it to hout right after step 1: the next streamed block reads the
+// values this launch computed, with no second snake pass.  hout is a
+// buffer apart from hin, which block 0 may still be reading.
 #include "hopper.cuh"
 
 namespace {
@@ -275,7 +285,7 @@ __device__ __forceinline__ void mma_tiles(float (&acc)[Plan<C>::NW / 2],
   ring.release(it0 + n - 1, lane);
 }
 
-template <int C, bool APPROX>
+template <int C, bool APPROX, bool HIST>
 __global__ void __launch_bounds__(NTHREADS, Plan<C>::MINB)
 res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
                 const __grid_constant__ CUtensorMap tm_w2,  // (3*C, KP)
@@ -283,6 +293,8 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
                 __nv_bfloat16* __restrict__ out,
                 const float* __restrict__ b1, const float* __restrict__ a1,
                 const float* __restrict__ b2, const float* __restrict__ a2,
+                const __nv_bfloat16* __restrict__ hin,   // (batch, 6d, C) if HIST
+                __nv_bfloat16* __restrict__ hout,        // (batch, 6d, C) if HIST
                 int L, int unit, int d) {
   using P = Plan<C>;
   extern __shared__ uint8_t smem_raw[];
@@ -330,12 +342,14 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
   }
   __syncthreads();
 
-  // 1. Y = snake1(x) on positions [r0 - 6d, r0 + BM), zero outside [0, L);
-  // each thread loads U chunks of 8 channels before it computes any
+  // 1. Y = snake1(x) on positions [r0 - 6d, r0 + BM), zero at >= L, and
+  // before 0 zero or the history as it is; each thread loads U chunks of
+  // 8 channels before it computes any
   constexpr int CH = C / 8;
   constexpr int U = 4;
   const int n_chunks = ny * CH;
   const int p0 = r0 - 6 * d;
+  const long long hbase = (long long)blockIdx.y * 6 * d;
   for (int i0 = ct; i0 < n_chunks; i0 += 256 * U) {
     uint4 v[U];
 #pragma unroll
@@ -345,6 +359,9 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
       v[u] = make_uint4(0u, 0u, 0u, 0u);
       if (i < n_chunks && pos >= 0 && pos < L)
         v[u] = *reinterpret_cast<const uint4*>(x + (base + pos) * C + (i % CH) * 8);
+      else if (HIST && i < n_chunks && pos < 0)
+        v[u] = *reinterpret_cast<const uint4*>(
+            hin + (hbase + 6 * d + pos) * C + (i % CH) * 8);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -352,10 +369,23 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
       if (i >= n_chunks) break;
       const int c = (i % CH) * 8;
       *reinterpret_cast<uint4*>(Y + (i / CH) * P::LDY + c) =
-          snake8<APPROX>(v[u], tab + c, tab + C + c);
+          HIST && p0 + i / CH < 0 ? v[u]
+                                  : snake8<APPROX>(v[u], tab + c, tab + C + c);
     }
   }
   __syncthreads();
+
+  // the new history: positions [L - 6d, L), Y rows from L - 6d - p0 of the
+  // last block; Y is not written again before the k7 loop is done
+  if (HIST && blockIdx.x == gridDim.x - 1) {
+    const int y0 = L - 6 * d - p0;
+    for (int i = ct; i < 6 * d * CH; i += 256) {
+      const int r = i / CH;
+      const int c = (i % CH) * 8;
+      *reinterpret_cast<uint4*>(hout + (hbase + r) * C + c) =
+          *reinterpret_cast<const uint4*>(Y + (y0 + r) * P::LDY + c);
+    }
+  }
 
   // 2. k7: output row i of this warpgroup reads Y row i + tap * d
   float acc[P::NW / 2];
@@ -422,14 +452,14 @@ int weight_map(CUtensorMap* m, const void* w, int rows) {
                   box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int C, bool APPROX>
+template <int C, bool APPROX, bool HIST>
 int run_stack(const void* x, void* tmp, void* out, const void* w1,
               const void* b1, const void* a1, const void* w2, const void* b2,
-              const void* a2, int batch, int L, int bm, int stages,
-              cudaStream_t st) {
+              const void* a2, const void* const* hin, void* const* hout,
+              int batch, int L, int bm, int stages, cudaStream_t st) {
   using P = Plan<C>;
   if (bm != P::BM || stages != P::STAGES) return (int)cudaErrorInvalidValue;
-  auto kern = res_unit_kernel<C, APPROX>;
+  auto kern = res_unit_kernel<C, APPROX, HIST>;
   static const int attr = allow_smem(kern, P::smem(MAX_DIL));
   if (attr) return attr;
   CUtensorMap t1, t2;
@@ -449,7 +479,8 @@ int run_stack(const void* x, void* tmp, void* out, const void* w1,
   for (int u = 0; u < 3; ++u) {
     kern<<<grid, NTHREADS, P::smem(dil[u]), st>>>(
         t1, t2, src[u], dst[u], (const float*)b1, (const float*)a1,
-        (const float*)b2, (const float*)a2, L, u, dil[u]);
+        (const float*)b2, (const float*)a2, (const __nv_bfloat16*)hin[u],
+        (__nv_bfloat16*)hout[u], L, u, dil[u]);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   return 0;
@@ -458,12 +489,13 @@ int run_stack(const void* x, void* tmp, void* out, const void* w1,
 template <int C>
 int run_c(int approx, const void* x, void* tmp, void* out, const void* w1,
           const void* b1, const void* a1, const void* w2, const void* b2,
-          const void* a2, int batch, int L, int bm, int stages,
-          cudaStream_t st) {
-  return approx ? run_stack<C, true>(x, tmp, out, w1, b1, a1, w2, b2, a2,
-                                     batch, L, bm, stages, st)
-                : run_stack<C, false>(x, tmp, out, w1, b1, a1, w2, b2, a2,
-                                      batch, L, bm, stages, st);
+          const void* a2, const void* const* hin, void* const* hout,
+          int batch, int L, int bm, int stages, cudaStream_t st) {
+  const bool hist = hin[0] != nullptr;
+  auto run = approx ? (hist ? run_stack<C, true, true> : run_stack<C, true, false>)
+                    : (hist ? run_stack<C, false, true> : run_stack<C, false, false>);
+  return run(x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm,
+             stages, st);
 }
 
 }  // namespace
@@ -473,25 +505,38 @@ int run_c(int approx, const void* x, void* tmp, void* out, const void* w1,
 // distinct buffers (the result is in out, tmp is scratch); w1 (3, 7, C,
 // KP) and w2 (3, C, KP) bf16 as (unit, [tap,] C_out, C_in padded to KP =
 // whole 64-channel panels, zeros beyond C); biases and alphas (3, C) fp32.
-// C must be one of the instantiated widths; bm and stages are the
-// wrapper's tile plan and must equal this file's.  Runs the three units
-// (d = 1, 3, 9) as three launches on `stream`; returns 0 or the first
-// cudaError_t.
+// h0in..h2in: null for the one-shot form (zero context before position
+// 0), or the three units' histories (batch, 6d, C) bf16 for d = 1, 3, 9,
+// with h0out..h2out three more buffers of the same shapes, distinct from
+// them, that receive the new histories.  C must be one of the
+// instantiated widths; bm and stages are the wrapper's tile plan and must
+// equal this file's.  Runs the three units (d = 1, 3, 9) as three
+// launches on `stream`; returns 0 or the first cudaError_t.
 extern "C" int echo_res_stack_bf16(const void* x, void* tmp, void* out,
                                    const void* w1, const void* b1,
                                    const void* a1, const void* w2,
-                                   const void* b2, const void* a2, int batch,
+                                   const void* b2, const void* a2,
+                                   const void* h0in, const void* h1in,
+                                   const void* h2in, void* h0out,
+                                   void* h1out, void* h2out, int batch,
                                    int L, int C, int bm, int stages,
                                    int approx, void* stream) {
   if (batch < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const void* hin[3] = {h0in, h1in, h2in};
+  void* hout[3] = {h0out, h1out, h2out};
+  for (int u = 0; u < 3; ++u)
+    if ((hin[u] == nullptr) != (hin[0] == nullptr) ||
+        (hin[u] == nullptr) != (hout[u] == nullptr) ||
+        (hin[u] != nullptr && hin[u] == hout[u]))
+      return (int)cudaErrorInvalidValue;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (C) {
-    case 64: return run_c<64>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
-    case 96: return run_c<96>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
-    case 128: return run_c<128>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
-    case 192: return run_c<192>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
-    case 256: return run_c<256>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
-    case 384: return run_c<384>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, batch, L, bm, stages, st);
+    case 64: return run_c<64>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    case 96: return run_c<96>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    case 128: return run_c<128>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    case 192: return run_c<192>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    case 256: return run_c<256>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    case 384: return run_c<384>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

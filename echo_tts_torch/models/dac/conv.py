@@ -31,18 +31,30 @@ from ...ops.activations import sin2_poly
 
 def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor], *, stride: int = 1,
-                  dilation: int = 1, groups: int = 1) -> torch.Tensor:
+                  dilation: int = 1, groups: int = 1,
+                  history: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CausalConvNet.forward (reference: autoencoder.py:285-289).
 
     x (B, L, C_in); kernel (K, C_in // groups, C_out).  Left-pad
     (k_eff - stride), right-pad so strides cover the length; output length
-    ceil(L / stride)."""
+    ceil(L / stride).
+
+    `history` (B, k_eff - stride, C_in), the previous block's raw input
+    tail, replaces the zero left pad (the streaming state,
+    models/dac/streaming.py; conv.py:27-60); zeros give the one-shot op."""
     k = kernel.shape[0]
     k_eff = (k - 1) * dilation + 1
     pad_left = k_eff - stride
     length = x.shape[1]
     extra = math.ceil(length / stride) * stride - length
-    x = F.pad(x, (0, 0, pad_left, extra))
+    if history is not None:
+        if history.shape[1] != pad_left or extra != 0:
+            raise ValueError(
+                f"streaming conv needs history length {pad_left} (got "
+                f"{history.shape[1]}) and block length % stride == 0")
+        x = torch.cat([history.to(x.dtype), x], dim=1)
+    else:
+        x = F.pad(x, (0, 0, pad_left, extra))
     out_len = (length + extra) // stride
 
     if groups == 1 and stride == 1:
@@ -70,19 +82,33 @@ def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def causal_conv_transpose1d(x: torch.Tensor, kernel: torch.Tensor,
-                            bias: Optional[torch.Tensor], *,
-                            stride: int) -> torch.Tensor:
+                            bias: Optional[torch.Tensor], *, stride: int,
+                            history: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """CausalTransConvNet.forward (reference: autoencoder.py:310-316).
 
     kernel (K, C_out, C_in); output length L * stride.  With K % stride == 0
     output position n = i*s + j receives x[i - g] @ W[j + g*s] for each tap
-    group g < K/s: K/s matmuls of (L, C_in) @ (C_in, s*C_out)."""
+    group g < K/s: K/s matmuls of (L, C_in) @ (C_in, s*C_out).
+
+    `history` (B, K/stride - 1, C_in): the previous block's raw input tail
+    for streaming decode (needs K % stride == 0; conv.py:100-110); zeros
+    give the one-shot op."""
     k = kernel.shape[0]
     b, length, c_in = x.shape
     c_out = kernel.shape[1]
+    if history is not None and (k % stride != 0
+                                or history.shape[1] != k // stride - 1):
+        raise ValueError(
+            f"streaming transpose conv needs K % stride == 0 and history "
+            f"length {k // stride - 1}, got K={k} s={stride} "
+            f"hist={history.shape[1]}")
     if k % stride == 0:
         n_hist = k // stride - 1
-        xfull = F.pad(x, (0, 0, n_hist, 0)) if n_hist else x
+        if history is not None and n_hist > 0:
+            xfull = torch.cat([history.to(x.dtype), x], dim=1)
+        else:
+            xfull = F.pad(x, (0, 0, n_hist, 0)) if n_hist else x
         out = None
         for gi in range(k // stride):
             w_g = (kernel[gi * stride:(gi + 1) * stride]   # (s, C_out, C_in)
@@ -118,17 +144,37 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * weight + bias
 
 
+def roll_history(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A streaming conv's new history: the last hist.shape[1] rows of
+    [hist | x], in hist's dtype (streaming.py:103-112 `_roll`; blocks
+    shorter than the history keep its older rows).  Always a new tensor,
+    so a shared zero state is never written and no block's activations
+    are kept alive."""
+    width = hist.shape[1]
+    if width == 0:
+        return hist
+    if x.shape[1] >= width:
+        return x[:, x.shape[1] - width:].to(hist.dtype, copy=True)
+    return torch.cat([hist, x.to(hist.dtype)], dim=1)[:, x.shape[1]:]
+
+
 def residual_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, dilation: int,
-                  approx_snake: bool = False) -> torch.Tensor:
+                  approx_snake: bool = False,
+                  history: Optional[torch.Tensor] = None):
     """Snake -> causal k7 dilated conv -> Snake -> causal k1 conv, residual
-    (reference: autoencoder.py:879-900).  w1 (7, C, C), w2 (1, C, C)."""
+    (reference: autoencoder.py:879-900).  w1 (7, C, C), w2 (1, C, C).
+
+    With `history` (B, 6 * dilation, C), the previous block's tail of
+    snake1(x), in place of the k7 conv's zero pad, returns (out, new
+    history) (streaming.py:139-147 `_residual_unit_s`)."""
     y = snake(x, alpha1, approx=approx_snake)
-    y = causal_conv1d(y, w1, b1, dilation=dilation)
+    new_hist = None if history is None else roll_history(history, y)
+    y = causal_conv1d(y, w1, b1, dilation=dilation, history=history)
     y = snake(y, alpha2, approx=approx_snake)
     y = causal_conv1d(y, w2, b2)
-    return x + y
+    return x + y if history is None else (x + y, new_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +283,13 @@ class ResidualUnit(nn.Module):
             Snake1d(dim), CausalConv(dim, dim, 7, dilation=dilation),
             Snake1d(dim), CausalConv(dim, dim, 1)])
 
-    def forward(self, x: torch.Tensor, approx_snake: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, approx_snake: bool = False,
+                history: Optional[torch.Tensor] = None):
         s1, c1, s2, c2 = self.block
         return residual_unit(x, s1.vec(), c1.conv.kernel(), c1.conv.bias,
                              s2.vec(), c2.conv.kernel(), c2.conv.bias,
-                             self.dilation, approx_snake=approx_snake)
+                             self.dilation, approx_snake=approx_snake,
+                             history=history)
 
 
 class ConvNeXtBlock(nn.Module):

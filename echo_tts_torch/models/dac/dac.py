@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import DACConfig
-from ...ops.res_stack import (DILATIONS, ResStackWeights, fused_res_stack,
-                               res_stack_eligible)
+from ...ops.res_stack import (DILATIONS, KERNEL_WIDTHS, ResStackWeights,
+                               fused_res_stack, res_stack_eligible)
 from .conv import (CausalConv, CausalConvTranspose, ConvNeXtBlock,
                    ResidualUnit, Snake1d, snake)
 from .quantize import ResidualVectorQuantize, rvq_encode, rvq_from_codes
@@ -143,15 +143,30 @@ def _stack_weights(units) -> ResStackWeights:
     return cached[1]
 
 
-def _res_stack(units, x: torch.Tensor, approx_snake: bool = False) -> torch.Tensor:
+def _res_stack(units, x: torch.Tensor, approx_snake: bool = False,
+               history=None):
     """Three dilated residual units: the hand-written kernel on a CUDA
-    tensor at C <= 384 (ops/res_stack.py), the unrolled units otherwise."""
-    if res_stack_eligible(x):
+    tensor at C <= 384 (ops/res_stack.py), the unrolled units otherwise.
+
+    The streaming callers (models/dac/streaming.py) pass `history`, the
+    three units' (B, 6d, C) tails of snake1 of their inputs, and get
+    (out, new history): through the kernel's history form at the kernel's
+    widths (on the CPU its plain version), else through the unrolled
+    units' history form, as the one-shot path runs them above C = 384
+    (the base decoder's first block, C = 768)."""
+    kernel_width = x.shape[2] <= KERNEL_WIDTHS[-1]
+    if res_stack_eligible(x) or (history is not None and kernel_width):
         return fused_res_stack(x, _stack_weights(units),
-                               approx_snake=approx_snake)
-    for u in units:
-        x = u(x, approx_snake=approx_snake)
-    return x
+                               approx_snake=approx_snake, history=history)
+    if history is None:
+        for u in units:
+            x = u(x, approx_snake=approx_snake)
+        return x
+    new_history = []
+    for u, h in zip(units, history):
+        x, h = u(x, approx_snake=approx_snake, history=h)
+        new_history.append(h)
+    return x, new_history
 
 
 def encoder_forward(enc: Encoder, cfg: DACConfig, audio: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""EchoDiT and its text/speaker encoders, one-shot subset, in PyTorch.
+"""EchoDiT, its text/speaker encoders and the blockwise latent prefix, in
+PyTorch.
 
 Counterpart of echo_tts_tpu/models/dit.py (reference: model.py:472-642).
 The modules are named after the reference module tree, so their
@@ -12,8 +13,15 @@ layers.  CFG branches ride as a leading multiple of the batch (q-batch
 G*B, G-major) while the static KV stays at batch B; the joint-attention
 kernel reads static row b = gb % B.
 
-The blockwise latent encoder (`blockwise=True` configs) has its parameters
-here so checkpoints load, but its functions are not ported yet.
+The blockwise latent prefix (`blockwise=True` configs, streaming):
+`get_kv_cache_latent` re-encodes a whole prefix, and
+`init_latent_inc_state` / `latent_kv_append_block` encode each block's
+new patches once, with the patch encoder's K/V carried per layer, writing
+the new columns in place into preallocated buffers (JAX donates its
+buffers to `dynamic_update_slice` for the same effect).  The latent
+segment goes first in the static K/V: [latent, text, speaker].  The
+four-segment `dit_forward` of the JAX package serves only training and
+waits for that slice.
 """
 from __future__ import annotations
 
@@ -246,26 +254,148 @@ def get_kv_cache_speaker(model: EchoDiT, speaker_latent: torch.Tensor) -> KV:
     return _stacked_kv(model, state, "speaker")
 
 
-def concat_static_kv(kv_text: KV, kv_speaker: KV) -> Tuple[KV, torch.Tensor]:
-    """Concatenate the per-request static KV once per sampler call.
+def get_kv_cache_latent(model: EchoDiT, prefix_latent: torch.Tensor) -> KV:
+    """Blockwise latent-prefix KV (dit.py:224-239; reference:
+    model.py:623-636): encoder output i sits at RoPE position
+    i * patch_size, and k is rotated on HALF the heads (model.py:284-293)."""
+    cfg = model.cfg
+    state = _patch_encoder(model.latent_encoder, cfg, prefix_latent)
+    state = rms_norm(state, model.latent_norm.weight, cfg.norm_eps)
+    k, v = _stacked_kv(model, state, "latent")
+    s, ps = state.shape[1], cfg.speaker_patch_size
+    freqs = freqs_tensor(cfg.head_dim, s * ps, state.device)[::ps]
+    return apply_rotary_emb_half_heads(k, freqs), v
 
-    Segment order [text, speaker].  Returns ((k, v) (L, B, T, H, Dh),
-    spk_cols (T,) bool marking the speaker columns, the target of the
+
+def concat_static_kv(kv_text: KV, kv_speaker: KV,
+                     kv_latent: Optional[KV] = None
+                     ) -> Tuple[KV, torch.Tensor]:
+    """Concatenate the per-request static KV once per sampler call (or
+    streamed block).
+
+    Segment order [latent?, text, speaker].  Returns ((k, v) (L, B, T, H,
+    Dh), spk_cols (T,) bool marking the speaker columns, the target of the
     speaker-KV scale)."""
-    k = torch.cat([kv_text[0], kv_speaker[0]], dim=2)
-    v = torch.cat([kv_text[1], kv_speaker[1]], dim=2)
-    t_text, t_spk = kv_text[0].shape[2], kv_speaker[0].shape[2]
-    spk_cols = torch.zeros((t_text + t_spk,), dtype=torch.bool, device=k.device)
-    spk_cols[t_text:] = True
+    parts = [kv_text, kv_speaker]
+    if kv_latent is not None:
+        parts.insert(0, kv_latent)
+    k = torch.cat([p[0] for p in parts], dim=2)
+    v = torch.cat([p[1] for p in parts], dim=2)
+    t_spk = kv_speaker[0].shape[2]
+    spk_cols = torch.zeros((k.shape[2],), dtype=torch.bool, device=k.device)
+    spk_cols[k.shape[2] - t_spk:] = True
     return (k, v), spk_cols
 
 
 def static_attention_mask(cfg: EchoDiTConfig, text_mask: torch.Tensor,
-                          speaker_mask: torch.Tensor) -> torch.Tensor:
-    """(GB, T) key mask over [text, speaker] with the speaker mask
+                          speaker_mask: torch.Tensor,
+                          latent_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """(GB, T) key mask over [latent?, text, speaker] with the speaker mask
     subsampled by patch_size (model.py:581)."""
-    return torch.cat([text_mask, speaker_mask[..., ::cfg.speaker_patch_size]],
-                     dim=-1)
+    parts = [text_mask, speaker_mask[..., ::cfg.speaker_patch_size]]
+    if latent_mask is not None:
+        parts.insert(0, latent_mask)
+    return torch.cat(parts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Incremental latent-prefix encoding (dit.py:284-417).  The latent encoder
+# is strictly causal, so patches encoded once never change: each block's
+# NEW patches are encoded with the per-layer K/V of the earlier ones, and
+# the result equals get_kv_cache_latent on the real prefix.
+# ---------------------------------------------------------------------------
+
+def init_latent_inc_state(cfg: EchoDiTConfig, batch: int, max_patches: int,
+                          dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero state (dit.py:297-312): the patch encoder's per-layer K/V and
+    the DiT latent-KV buffer, preallocated at max_patches; columns at and
+    past "pos" (a host int, the patches encoded so far) are zeros that
+    `latent_prefix_mask` hides.  Raises without CUDA unless device='cpu'."""
+    device = resolve_device(device)
+    enc = (cfg.speaker_num_layers, batch, max_patches, cfg.speaker_num_heads,
+           cfg.speaker_head_dim)
+    lat = (cfg.num_layers, batch, max_patches, cfg.num_heads, cfg.head_dim)
+    return {"enc_k": torch.zeros(enc, dtype=dtype, device=device),
+            "enc_v": torch.zeros(enc, dtype=dtype, device=device),
+            "lat_k": torch.zeros(lat, dtype=dtype, device=device),
+            "lat_v": torch.zeros(lat, dtype=dtype, device=device),
+            "pos": 0}
+
+
+def latent_kv_append_block(model: EchoDiT, state: dict,
+                           latent_block: torch.Tensor) -> dict:
+    """Encode ONE block's latents (B, S_block, latent), S_block a multiple
+    of the patch size, through the causal patch encoder with the carried
+    K/V, and write the new DiT latent-KV columns (dit.py:315-398).
+
+    The state's buffers are written in place and the same dict is
+    returned, with "pos" advanced; "lat_k"/"lat_v" then stand for
+    get_kv_cache_latent's output (RoPE at idx * patch_size), valid for
+    columns < pos.  Encoder logits are fp32 with sdpa's 1/sqrt(dh) and
+    -inf off the causal visibility col <= pos + i."""
+    cfg = model.cfg
+    p = model.latent_encoder
+    b, s, d = latent_block.shape
+    ps = cfg.speaker_patch_size
+    if s % ps != 0:
+        raise ValueError(f"block length {s} must be divisible by "
+                         f"speaker_patch_size {ps}")
+    n_new = s // ps
+    max_patches = state["enc_k"].shape[2]
+    pos = state["pos"]
+    if pos + n_new > max_patches:
+        raise ValueError(f"{pos} + {n_new} patches exceed the state's "
+                         f"{max_patches}")
+    eps = cfg.norm_eps
+    h_enc, dh_enc = cfg.speaker_num_heads, cfg.speaker_head_dim
+    dev = latent_block.device
+    new = slice(pos, pos + n_new)
+
+    x = p.in_proj(latent_block.reshape(b, n_new, d * ps)) / 6.0
+    freqs_new = freqs_tensor(dh_enc, max_patches, dev)[new]
+    col = torch.arange(max_patches, device=dev)[None, :]
+    row = pos + torch.arange(n_new, device=dev)[:, None]
+    hidden = ~(col <= row)[None, None]       # (1, 1, n_new, max_patches)
+    for li, blk in enumerate(p.blocks):
+        a = blk.attention
+        xn = rms_norm(x, blk.attention_norm.weight, eps)
+        q = a.wq(xn).reshape(b, n_new, h_enc, dh_enc)
+        k = a.wk(xn).reshape(b, n_new, h_enc, dh_enc)
+        v = a.wv(xn).reshape(b, n_new, h_enc, dh_enc)
+        gate = a.gate(xn)
+        q = apply_rotary_emb(rms_norm(q, a.q_norm.weight, eps), freqs_new)
+        k = apply_rotary_emb(rms_norm(k, a.k_norm.weight, eps), freqs_new)
+        k_cache, v_cache = state["enc_k"][li], state["enc_v"][li]
+        k_cache[:, new] = k
+        v_cache[:, new] = v
+        logits = torch.einsum("bnhd,bmhd->bhnm", q.float(),
+                              k_cache.to(q.dtype).float()) * (1.0 / dh_enc ** 0.5)
+        w = torch.softmax(logits.masked_fill(hidden, float("-inf")),
+                          dim=-1).to(v_cache.dtype)
+        attn = torch.einsum("bhnm,bmhd->bnhd", w, v_cache)
+        attn = attn.reshape(b, n_new, -1).to(x.dtype)
+        x = x + a.wo(attn * torch.sigmoid(gate))
+        x = x + _mlp(blk.mlp, rms_norm(x, blk.mlp_norm.weight, eps))
+
+    # the new patches' DiT latent-KV columns (get_kv_cache_latent's twin):
+    # RoPE at (pos + i) * patch_size on half the heads
+    k_new, v_new = _stacked_kv(
+        model, rms_norm(x, model.latent_norm.weight, eps), "latent")
+    table = freqs_tensor(cfg.head_dim, max_patches * ps, dev)[::ps]
+    state["lat_k"][:, :, new] = apply_rotary_emb_half_heads(k_new, table[new])
+    state["lat_v"][:, :, new] = v_new
+    state["pos"] = pos + n_new
+    return state
+
+
+def latent_prefix_mask(batch_size: int, num_latents: int, start_pos: int,
+                       patch_size: int, *, device) -> torch.Tensor:
+    """(B, num_latents) bool: position * patch_size < start_pos
+    (dit.py:401-417; reference: model.py:243-244).  start_pos is a host
+    int here, so one function serves both of the JAX package's variants."""
+    positions = torch.arange(num_latents, device=device) * patch_size
+    return (positions < start_pos).expand(batch_size, num_latents)
 
 
 # ---------------------------------------------------------------------------

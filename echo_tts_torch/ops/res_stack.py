@@ -18,6 +18,18 @@ tensors (or raises).  Its weights come as a `ResStackWeights`: the JAX
 layout, w1 (3, 7, C, C) as (unit, tap, C_in, C_out), w2 (3, C, C) as
 (unit, C_in, C_out), biases and snake alphas (3, C), which keeps its
 kernel-layout copy so that a caller who holds it pays that copy once.
+
+The history form (streaming decode and encode, models/dac/streaming.py):
+with `history`, three (B, 6 * d, C) tensors in x's dtype holding the
+previous block's last 6 * d rows of snake1 of each unit's input, a context
+row at position p < 0 of unit d reads history[u][:, 6 * d + p] (already
+snake1'd) where the one-shot form reads zero, and the call returns
+(out, new_history): the last 6 * d rows of [history | snake1(x_u)] of each
+unit, which the kernel writes out from its own shared-memory tile (the
+block holding rows [L - 6 * d, L)), so that the next block reads the
+values this launch computed.  Those calls count in
+`fused_res_stack.launches_stream`, the one-shot ones in
+`fused_res_stack.launches`.
 """
 from __future__ import annotations
 
@@ -42,8 +54,9 @@ def res_stack_eligible(x: torch.Tensor) -> bool:
     """Whether the kernel takes x: a CUDA tensor at C <= 384, the widths it
     is built for, at any length (it masks ragged tiles and zero-pads the
     context before the sequence start).  The JAX package also asks for
-    L >= 4096 (res_stack.py:48-57), a TPU heuristic; here every short
-    block, as streaming decode will give, runs the kernel too."""
+    L >= 4096 (res_stack.py:48-57), a TPU heuristic; here every streamed
+    block (L = 256, 1024, 2048 frames per latent at C = 384, 192, 96)
+    runs the kernel too."""
     return x.is_cuda and x.shape[2] <= KERNEL_WIDTHS[-1]
 
 
@@ -56,30 +69,49 @@ def _snake_f32(v: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tens
 
 
 def residual_unit_plain(x, w1, b1, a1, w2, b2, a2, dil: int,
-                        approx_snake: bool = False):
+                        approx_snake: bool = False, history=None):
     """One residual unit (models/dac/conv.py:residual_unit) at the Pallas
     kernel's rounding points (res_stack.py:90-111), which the CUDA kernel
     keeps: snake in fp32 then cast; each conv from working-dtype inputs with
     fp32 accumulation, + bias, then cast; the residual add in the working
     dtype.  w1 (7, C_in, C_out), w2 (C_in, C_out), vectors (C,).  In fp32
-    this is exactly `residual_unit`."""
+    this is exactly `residual_unit`.
+
+    With `history` (B, 6 * dil, C), the previous block's tail of snake1(x),
+    as the k7 conv's context in place of zeros, returns (out, new history),
+    the last 6 * dil rows of [history | snake1(x)] in x's dtype."""
     dt, length = x.dtype, x.shape[1]
-    y = F.pad(_snake_f32(x, a1, approx_snake), (0, 0, 6 * dil, 0)).float()
+    y = _snake_f32(x, a1, approx_snake)
+    if history is None:
+        y = F.pad(y, (0, 0, 6 * dil, 0))
+    else:
+        y = torch.cat([history.to(dt), y], dim=1)
+        new_history = y[:, y.shape[1] - 6 * dil:].clone()
+    y = y.float()
     w = w1.float()
     z = y[:, 0:length] @ w[0]
     for k in range(1, 7):
         z = z + y[:, k * dil:k * dil + length] @ w[k]
     z = _snake_f32((z + b1.float()).to(dt), a2, approx_snake)
-    return x + (z.float() @ w2.float() + b2.float()).to(dt)
+    out = x + (z.float() @ w2.float() + b2.float()).to(dt)
+    return out if history is None else (out, new_history)
 
 
-def res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx_snake: bool = False):
+def res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx_snake: bool = False,
+                    history=None):
     """The three units, d = 1, 3, 9, one after the other, as the kernel runs
-    them (one launch each); weights stacked over the unit axis."""
+    them (one launch each); weights stacked over the unit axis.  With
+    `history` (three tensors) returns (out, [three new histories])."""
+    new_history = []
     for u, dil in enumerate(DILATIONS):
-        x = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u], a2[u],
-                                dil, approx_snake)
-    return x
+        if history is None:
+            x = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u],
+                                    a2[u], dil, approx_snake)
+        else:
+            x, h = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u],
+                                       a2[u], dil, approx_snake, history[u])
+            new_history.append(h)
+    return x if history is None else (x, new_history)
 
 
 def tile_plan(c: int) -> dict:
@@ -121,8 +153,10 @@ def smem_bytes(c: int, dil: int) -> int:
 def unit_blocks(c: int, length: int, dil: int) -> list:
     """The blocks of the launch of the unit with dilation dil, in grid
     order: (first row read, first output row, output rows).  A block reads
-    its rows and the 6 * dil before them (zero before the sequence
-    start), and the kernel's tile buffer holds bm + 6 * dil rows."""
+    its rows and the 6 * dil before them (zero, or the history, before the
+    sequence start), and the kernel's tile buffer holds bm + 6 * dil rows.
+    The last block's tile holds rows [L - 6 * dil, L), the new history,
+    which it writes out in the history form."""
     bm = tile_plan(c)["bm"]
     return [(r0 - 6 * dil, r0, min(bm, length - r0))
             for r0 in range(0, length, bm)]
@@ -176,11 +210,20 @@ class ResStackWeights:
         return self._kernel
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def _launch(x: torch.Tensor, weights: ResStackWeights,
-            approx_snake: bool) -> torch.Tensor:
+def _dense16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy: the kernel reads rows of 8 bf16 (16 bytes)
+    at a time, so it needs dense, 16-byte aligned tensors (a fresh or
+    padded copy always is)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(x: torch.Tensor, weights: ResStackWeights, approx_snake: bool,
+            history=None):
     batch, length, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the residual-stack kernel takes bf16 activations; "
@@ -190,37 +233,60 @@ def _launch(x: torch.Tensor, weights: ResStackWeights,
                          f"C={weights.w1.shape[-1]}")
     cp, w1t, w2t, b1, a1, b2, a2 = weights.kernel_layout()
     pad = cp - c
-    # rows of 8 bf16 (16 bytes) are read at a time: x must be dense and
-    # aligned (a padded copy always is)
-    xk = F.pad(x, (0, pad)) if pad else x
-    if not xk.is_contiguous() or xk.data_ptr() % 16:
-        xk = xk.clone(memory_format=torch.contiguous_format)
+    xk = _dense16(F.pad(x, (0, pad)) if pad else x)
     # the three units run x -> out -> tmp -> out
     out, tmp = torch.empty_like(xk), torch.empty_like(xk)
+    hist_in = hist_out = [None] * 3
+    if history is not None:
+        hist_in = [_dense16(F.pad(h, (0, pad)) if pad else h) for h in history]
+        hist_out = [torch.empty_like(h) for h in hist_in]
     plan = tile_plan(cp)
     fn = cuda_build.entry("res_stack", "echo_res_stack_bf16", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = fn(xk.data_ptr(), tmp.data_ptr(), out.data_ptr(), w1t.data_ptr(),
             b1.data_ptr(), a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-            a2.data_ptr(), batch, length, cp, plan["bm"], plan["stages"],
-            int(bool(approx_snake)), stream)
+            a2.data_ptr(), *(ptr(h) for h in hist_in),
+            *(ptr(h) for h in hist_out), batch, length, cp, plan["bm"],
+            plan["stages"], int(bool(approx_snake)), stream)
     cuda_build.check(rc, "res_stack")
-    fused_res_stack.launches += 1
-    return out[..., :c] if pad else out
+    out = out[..., :c] if pad else out
+    if history is None:
+        fused_res_stack.launches += 1
+        return out
+    fused_res_stack.launches_stream += 1
+    return out, [h[..., :c] if pad else h for h in hist_out]
 
 
 def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
-                    approx_snake: bool = False) -> torch.Tensor:
+                    approx_snake: bool = False, history=None):
     """Apply the three dilated residual units to x (B, L, C).
 
+    With `history` (three tensors (B, 6 * d, C) in x's dtype, d = 1, 3, 9)
+    returns (out, new_history), the history form of the module docstring.
     CPU tensors run `res_stack_plain`; CUDA tensors launch the kernel, one
     launch per unit, and count the call (one per stack) in
-    `fused_res_stack.launches`."""
+    `fused_res_stack.launches`, or `.launches_stream` for the history
+    form."""
+    if history is not None:
+        if len(history) != len(DILATIONS):
+            raise ValueError(f"history holds {len(history)} tensors, not "
+                             f"{len(DILATIONS)}")
+        for h, dil in zip(history, DILATIONS):
+            want = (x.shape[0], 6 * dil, x.shape[2])
+            if tuple(h.shape) != want or h.dtype != x.dtype:
+                raise ValueError(f"history {tuple(h.shape)} {h.dtype} must "
+                                 f"be {want} {x.dtype}")
     if x.device.type == "cpu":
-        return res_stack_plain(x, *weights.plain_args(), approx_snake)
+        return res_stack_plain(x, *weights.plain_args(), approx_snake,
+                               history)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, weights, approx_snake)
+    return _launch(x, weights, approx_snake, history)
 
 
 fused_res_stack.launches = 0
+fused_res_stack.launches_stream = 0

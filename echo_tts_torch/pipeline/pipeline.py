@@ -1,10 +1,9 @@
-"""Text -> audio orchestration (host side), one-shot path.
+"""Text -> audio orchestration (host side).
 
 Counterpart of echo_tts_tpu/pipeline/pipeline.py (reference:
 inference.py:218-388): chunked AE encode of the speaker reference, the
-sampler call, AE decode, the end-of-speech crop, and the chunked-text
-variant.  The streaming (block) encode/decode entry points wait for a
-later slice.
+sampler call, AE decode, the end-of-speech crop, the chunked-text
+variant, and the streaming (block) encode/decode entry points.
 
 A `sample_fn` has the signature
     sample_fn(models, speaker_latent, speaker_mask, text_ids, text_mask,
@@ -14,6 +13,7 @@ and is normally `functools.partial(euler_sample_fn, **SAMPLER_DEFAULTS)`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Callable, List, Optional, Tuple
 
@@ -24,6 +24,7 @@ from ..config import (DACConfig, EchoDiTConfig, MAX_SPEAKER_LATENT_LENGTH,
                       MAX_TEXT_LENGTH, base_dac_config, base_dit_config)
 from ..device import resolve_device
 from ..models.dac import dac as tdac
+from ..models.dac import streaming as tstream
 from ..models.dac.init import init_dac, init_pca_params
 from ..models.dit import EchoDiT, init_dit
 from ..sampler.euler import sample_euler_cfg_independent_guidances
@@ -81,6 +82,87 @@ def ae_decode(models: EchoModels, latents: torch.Tensor) -> torch.Tensor:
     z_q = tdac.pca_unwhiten(latents.to(models.device).float(), models.pca)
     audio = tdac.decode_zq(models.dac, z_q.to(_dac_dtype(models)))
     return audio[..., 0].float()
+
+
+@functools.lru_cache(maxsize=8)
+def _decode_state_template(dac_cfg: DACConfig, batch: int, dtype: torch.dtype,
+                           device: torch.device) -> dict:
+    """The zero decode state, built once per (config, batch, dtype, device)
+    (pipeline.py:106-116): dozens of small tensors that would otherwise be
+    made at the start of every stream.  Block calls never write into a
+    state they are given, so every stream shares it."""
+    return tstream.init_decode_state(dac_cfg, batch, dtype, device)
+
+
+def ae_decode_stream_init(models: EchoModels, batch: int = 1) -> dict:
+    """Fresh incremental-decode state: the device state under "inner" and
+    "pos", the stream's position in latents, kept on the host so that the
+    RoPE-bound check needs no device sync."""
+    return {"inner": _decode_state_template(models.dac_cfg, batch,
+                                            _dac_dtype(models), models.device),
+            "pos": 0}
+
+
+@torch.inference_mode()
+def ae_decode_block(models: EchoModels, state: dict, latents: torch.Tensor,
+                    *, max_positions: Optional[int] = None):
+    """Incremental ae_decode: (B, T_block, 80) latents -> ((B, T_block *
+    2048) fp32 waveform, new state).  Consecutive blocks reproduce
+    ae_decode of the concatenated latents (up to float reduction order)
+    at O(block) cost (pipeline.py:182-203).  `max_positions` (default
+    streaming.MAX_POSITIONS) bounds the RoPE positions of one stream;
+    going past it raises."""
+    if max_positions is None:
+        max_positions = tstream.MAX_POSITIONS
+    pos = state["pos"]
+    if pos + latents.shape[1] > max_positions:
+        raise ValueError(
+            f"decode stream position {pos} + block {latents.shape[1]} "
+            f"exceeds the RoPE bound {max_positions}; raise max_positions "
+            "(consistently across the stream) for longer audio")
+    z_q = tdac.pca_unwhiten(latents.to(models.device).float(), models.pca)
+    audio, inner = tstream.decode_zq_block(
+        models.dac, state["inner"], z_q.to(_dac_dtype(models)),
+        max_positions=max_positions)
+    return audio[..., 0].float(), {"inner": inner, "pos": pos + latents.shape[1]}
+
+
+def ae_encode_stream_init(models: EchoModels, batch: int = 1) -> dict:
+    """Fresh incremental-encode state; "pos" is the encoder-frame position,
+    kept on the host."""
+    return {"inner": tstream.init_encode_state(models.dac_cfg, batch,
+                                               _dac_dtype(models),
+                                               models.device),
+            "pos": 0}
+
+
+@torch.inference_mode()
+def ae_encode_block(models: EchoModels, state: dict, audio: torch.Tensor,
+                    *, max_positions: Optional[int] = None):
+    """Incremental ae_encode: (B, L_block) or (B, L_block, 1) waveform,
+    L_block a frame_length multiple -> ((B, L_block / 2048, 80) whitened
+    fp32 latents, new state) (pipeline.py:140-173).  Consecutive blocks
+    reproduce ae_encode of the concatenated audio.  The RoPE bound binds
+    at the encoder-tail transformer, one position per hop_length samples
+    (default streaming.MAX_ENC_POSITIONS); going past it raises."""
+    if max_positions is None:
+        max_positions = tstream.MAX_ENC_POSITIONS
+    if audio.ndim == 2:
+        audio = audio[..., None]
+    cfg = models.dac_cfg
+    frames = audio.shape[1] // cfg.hop_length
+    pos = state["pos"]
+    if pos + frames > max_positions:
+        raise ValueError(
+            f"encode stream position {pos} + block {frames} frames "
+            f"exceeds the RoPE bound {max_positions} "
+            f"(~{max_positions * cfg.hop_length / cfg.sample_rate:.0f}"
+            " s of audio); raise max_positions consistently for longer")
+    audio = audio.to(device=models.device, dtype=_dac_dtype(models))
+    z_q, inner = tstream.encode_zq_block(models.dac, state["inner"], audio,
+                                         max_positions=max_positions)
+    return (tdac.pca_whiten(z_q.float(), models.pca),
+            {"inner": inner, "pos": pos + frames})
 
 
 def get_speaker_latent_and_mask(

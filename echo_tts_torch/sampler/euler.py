@@ -90,17 +90,22 @@ def _segments(has_cfg: np.ndarray) -> List[Tuple[bool, int, int]]:
 
 
 def make_cfg_branch_masks(cfg: EchoDiTConfig, text_mask: torch.Tensor,
-                          speaker_mask: torch.Tensor
+                          speaker_mask: torch.Tensor,
+                          latent_mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Static key masks (mask_cfg (3B, T), mask_plain (B, T)).  Branch
     order [cond, uncond_text, uncond_speaker] (inference.py:474-475):
-    uncond_text zeroes the text columns, uncond_speaker the speaker ones."""
+    uncond_text zeroes the text columns, uncond_speaker the speaker ones;
+    a blockwise latent-prefix mask is the same in all three
+    (euler.py:111-126)."""
     zero_t = torch.zeros_like(text_mask)
     zero_s = torch.zeros_like(speaker_mask)
     full_text = torch.cat([text_mask, zero_t, text_mask], dim=0)
     full_spk = torch.cat([speaker_mask, speaker_mask, zero_s], dim=0)
-    mask_plain = dit.static_attention_mask(cfg, text_mask, speaker_mask)
-    mask_cfg = dit.static_attention_mask(cfg, full_text, full_spk)
+    lat3 = None if latent_mask is None else torch.cat([latent_mask] * 3, dim=0)
+    mask_plain = dit.static_attention_mask(cfg, text_mask, speaker_mask,
+                                           latent_mask)
+    mask_cfg = dit.static_attention_mask(cfg, full_text, full_spk, lat3)
     return mask_cfg, mask_plain
 
 

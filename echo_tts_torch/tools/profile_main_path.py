@@ -1,6 +1,6 @@
-"""Where the one-shot path's device time goes, on one CUDA card.
+"""Where the main path's device time goes, on one CUDA card.
 
-    python -m echo_tts_torch.tools.profile_main_path
+    python -m echo_tts_torch.tools.profile_main_path [--stream]
 
 Builds the seeded random models at full width (pipeline.random_models),
 answers one voice-cloned request (tests/data/voice.wav as the speaker,
@@ -17,8 +17,15 @@ the profiler saw).  The wall times come first because the profiler's host
 work, and the tracing it leaves attached after its first use, would
 inflate them.  It prints both, the idle share 1 - busy / median wall, and
 the TOP kernels that took the most device time; the hand-written kernels
-(and kernel C's pre-pass) are named so their share can be read off.  The last line is one JSON
+(and kernel C's pre-pass) are named, and listed apart with their launches
+whether or not they are among the TOP, so their share can be read off.  The last line is one JSON
 object with those numbers.
+
+With --stream it profiles instead the first chunk of chip_smoke.py's
+streaming request (e): stream_synthesize on growing_schedule(640) with
+that voice, pre-encoded so that the stage is the prefill, the 40-latent
+first block's sampler and its first decode_zq_block, up to the chunk's
+audio on the host.  The same REPS unprofiled runs, then one profiled.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import functools
 import json
 import statistics
 import subprocess
+import sys
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -39,6 +47,8 @@ from ..config import SAMPLER_DEFAULTS, MAX_TEXT_LENGTH
 from ..ops.quant import quantize_dit
 from ..pipeline import audio_io, pipeline as pl
 from ..pipeline.text import get_text_input_ids_and_mask
+from ..serve.presets import growing_schedule
+from ..serve.streaming import stream_synthesize
 
 VOICE = Path(__file__).resolve().parents[2] / "tests" / "data" / "voice.wav"
 TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
@@ -81,7 +91,9 @@ def _device_summary(prof) -> dict:
         busy += cur_e - cur_s
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"busy_ms": busy / 1e3, "kernel_ms_sum": sum(v[1] for v in by_name.values()),
-            "top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in ranked[:TOP]]}
+            "top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in ranked[:TOP]],
+            "hand_written": {n: {"calls": c, "ms": ms} for n, (c, ms) in by_name.items()
+                             if n in KERNELS.values()}}
 
 
 def _timed(fn, reps: int):
@@ -110,10 +122,29 @@ def _profiled(name: str, fn, walls: list) -> dict:
           f"{res['idle_share']:.3f}", flush=True)
     for k in res["top"]:
         print(f"    {k['ms']:10.2f} ms {k['calls']:6d}x  {k['name']}", flush=True)
+    for n, k in res["hand_written"].items():
+        print(f"    hand-written: {n} {k['ms']:.3f} ms, {k['calls']} launches",
+              flush=True)
     return res
 
 
-def main() -> int:
+def stream_stages(models, voice) -> list:
+    """Request (e)'s first chunk: prefill, first block, first decode."""
+    lat, mask = pl.get_speaker_latent_and_mask(models, voice)
+
+    def first_chunk():
+        stream = stream_synthesize(models, TEXT, chunk_sizes=growing_schedule(640),
+                                   seed=5, speaker_latent=lat, speaker_mask=mask)
+        chunk = next(stream)
+        stream.close()
+        return chunk
+
+    first_chunk()                                           # warm-up
+    _, walls = _timed(first_chunk, REPS)
+    return [_profiled("stream_first_chunk", first_chunk, walls)]
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,6 +157,10 @@ def main() -> int:
     models = pl.random_models()
     sample_fn = functools.partial(pl.euler_sample_fn, **SAMPLER_DEFAULTS)
     voice = audio_io.load_audio(str(VOICE))
+    if "--stream" in argv:
+        print(json.dumps({"card": card, "stages": stream_stages(models, voice)}),
+              flush=True)
+        return 0
     pl.sample_pipeline(models, sample_fn, TEXT, voice, 0)   # warm-up
 
     def encode():
@@ -164,4 +199,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

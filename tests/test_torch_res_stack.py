@@ -2,6 +2,9 @@
 tensors) against the JAX package's Pallas kernel in interpret mode, at the
 shapes of tests/test_res_stack_kernel.py, exact sin and sin2_poly.
 
+The history form (streaming) is held against three calls of the JAX
+package's streaming unit, `_residual_unit_s`.
+
 Bound atol 2e-5 / rtol 1e-4 (fp32): the JAX suite's own bound
 (tests/test_res_stack_kernel.py:48).  The CUDA kernel is held against the
 same plain version on the card by chip_smoke.py (bf16, rel-RMS <= 1e-2).
@@ -180,3 +183,123 @@ def test_kernel_launch_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         rs._launch(x.to(torch.bfloat16), w, False)
     assert rs.fused_res_stack.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The history form (streaming decode and encode)
+# ---------------------------------------------------------------------------
+
+def _histories(rng, c, batch=1):
+    return [torch.from_numpy(rng.standard_normal((batch, 6 * d, c))
+                             .astype(np.float32) * 0.5) for d in rs.DILATIONS]
+
+
+@pytest.mark.parametrize("c,length,approx", [
+    (64, 150, False), (96, 40, True), (128, 300, False)])
+def test_plain_history_form_matches_jax_units(c, length, approx):
+    """The plain history form against three calls of JAX's streaming unit
+    (`_residual_unit_s`, streaming.py:139-147), each carrying its conv1
+    state: the output and every unit's new state."""
+    from echo_tts_tpu.models.dac.streaming import _residual_unit_s
+
+    rng = np.random.default_rng(c + length)
+    units = _units(rng, c)
+    x = rng.standard_normal((2, length, c)).astype(np.float32) * 0.3
+    hist = _histories(rng, c, batch=2)
+    want = jnp.asarray(x)
+    want_hist = []
+    for u, d, h in zip(units, rs.DILATIONS, hist):
+        st, want = _residual_unit_s(
+            {k: ({kk: jnp.asarray(vv) for kk, vv in v.items()}
+                 if isinstance(v, dict) else jnp.asarray(v))
+             for k, v in u.items()},
+            {"conv1": jnp.asarray(h.numpy())}, want, d, approx_snake=approx)
+        want_hist.append(st["conv1"])
+    got, got_hist = rs.fused_res_stack(
+        torch.from_numpy(x), rs.ResStackWeights(*_stacked(units)),
+        approx_snake=approx, history=hist)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for g, w, d in zip(got_hist, want_hist, rs.DILATIONS):
+        assert g.shape == (2, 6 * d, c)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_zero_history_is_the_one_shot_stack(approx):
+    """Zero history is the causal zero pad: the output equals the one-shot
+    plain stack exactly, in bf16 too, and the new history holds the last
+    6 * d rows of snake1 of each unit's input."""
+    rng = np.random.default_rng(5)
+    c, length = 64, 100
+    w = [a.to(torch.bfloat16) for a in _stacked(_units(rng, c))]
+    x = torch.from_numpy(rng.standard_normal((1, length, c))
+                         .astype(np.float32)).to(torch.bfloat16)
+    zeros = [torch.zeros((1, 6 * d, c), dtype=torch.bfloat16)
+             for d in rs.DILATIONS]
+    got, hist = rs.res_stack_plain(x, *w, approx, history=zeros)
+    assert torch.equal(got, rs.res_stack_plain(x, *w, approx))
+    xu = x
+    for u, d in enumerate(rs.DILATIONS):
+        assert torch.equal(hist[u], rs._snake_f32(xu, w[2][u], approx)[:, -6 * d:])
+        xu = rs.residual_unit_plain(xu, *(a[u] for a in w), d, approx)
+
+
+def test_short_block_keeps_older_history_rows():
+    """A block shorter than the history (L = 40 < 54 at d = 9) keeps the
+    older rows: the new history is [history rows 40..54 | snake1(x)], and
+    chaining two blocks of 40 equals one block of 80."""
+    rng = np.random.default_rng(40)
+    c = 64
+    w = rs.ResStackWeights(*_stacked(_units(rng, c)))
+    x = torch.from_numpy(rng.standard_normal((1, 80, c)).astype(np.float32))
+    hist = _histories(rng, c)
+    _, new = rs.fused_res_stack(x[:, :40], w, history=hist)
+    np.testing.assert_array_equal(new[2][:, :14].numpy(), hist[2][:, 40:].numpy())
+    snake1 = rs._snake_f32(x[:, :40], w.a1[0], False)
+    np.testing.assert_array_equal(new[0].numpy(), snake1[:, -6:].numpy())
+    out_a, hist_a = rs.fused_res_stack(x[:, :40], w, history=hist)
+    out_b, hist_b = rs.fused_res_stack(x[:, 40:], w, history=hist_a)
+    out, hist_ab = rs.fused_res_stack(x, w, history=hist)
+    np.testing.assert_allclose(torch.cat([out_a, out_b], 1).numpy(),
+                               out.numpy(), **TOL)
+    for g, want in zip(hist_b, hist_ab):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("length", [1, 40, 300, 163840])
+@pytest.mark.parametrize("c", [96, 384])
+def test_last_block_holds_the_new_history(c, length):
+    """The kernel writes the new history from its last block's tile: for
+    every unit, rows [L - 6d, L) lie in the rows that block reads (from
+    r0 - 6d, history rows before 0 included)."""
+    for d in rs.DILATIONS:
+        first, r0, rows = rs.unit_blocks(c, length, d)[-1]
+        assert first <= length - 6 * d and r0 + rows == length
+
+
+def test_history_shapes_are_checked():
+    rng = np.random.default_rng(2)
+    w = rs.ResStackWeights(*_stacked(_units(rng, 64)))
+    x = torch.zeros((1, 50, 64))
+    hist = _histories(rng, 64)
+    with pytest.raises(ValueError, match="holds 2"):
+        rs.fused_res_stack(x, w, history=hist[:2])
+    with pytest.raises(ValueError, match="must be"):
+        rs.fused_res_stack(x, w, history=[hist[0], hist[2], hist[1]])
+    with pytest.raises(ValueError, match="must be"):
+        rs.fused_res_stack(x, w, history=[h.double() for h in hist])
+
+
+def test_history_launch_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rng = np.random.default_rng(3)
+    w = rs.ResStackWeights(*(a.to(torch.bfloat16)
+                             for a in _stacked(_units(rng, 64))))
+    x = torch.zeros((1, 64, 64), dtype=torch.bfloat16)
+    hist = [h.to(torch.bfloat16) for h in _histories(rng, 64)]
+    before = (rs.fused_res_stack.launches, rs.fused_res_stack.launches_stream)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs._launch(x, w, False, hist)
+    assert (rs.fused_res_stack.launches,
+            rs.fused_res_stack.launches_stream) == before
