@@ -24,14 +24,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      one-shot bf16 decode is, within 1.25x), with each chunk's arrival time,
      time to first audio, streamed RTF and the playback stall; then the
      blockwise sampler with the incremental latent prefix against the
-     re-encode, at reduced depth;
+     re-encode, at reduced depth; then the serving layer: (f) the
+     handler's one-shot job (a two-chunk text, voice.wav from a voices
+     directory, seed 7), its chunks bit for bit sample_pipeline's with
+     seeds 7 and 1007, again from the voice cache, and health_check; (g) a
+     streaming job through the handler under ECHO_DIT_QUANT=int8; (h) one
+     micro-batched pass of eight concurrent submits to MicroBatchServer
+     (KV batch 8), each request's noise bit for bit its single draw and its
+     latents within rel-RMS 1e-2 of the request run alone, with the
+     batch's audio seconds per wall second;
   4. each kernel against its plain PyTorch version on the card at the main
      path's shapes (and at ragged shapes shorter than one tile): joint
-     attention with bf16 and with int8 static K/V, and at the streaming
-     shapes (latent-prefix columns, part or a whole tile masked); the
-     residual stack, one-shot and in its history form at streamed block
-     shapes (new history checked too, zero history bit-equal to the
-     one-shot kernel); and the W8A8 matmul (fp32 output within 1e-5 of the
+     attention with bf16 and with int8 static K/V, at the streaming
+     shapes (latent-prefix columns, part or a whole tile masked) and over
+     a KV batch of 2 and 8 (request h's, per-row speaker lengths masked),
+     and under grad (the autograd Function's gradients against the plain
+     version's); the
+     residual stack, one-shot (at batch 1 and, as request h decodes, 4)
+     and in its history form at streamed block shapes (new history
+     checked too, zero history bit-equal to the one-shot kernel); and the W8A8 matmul (fp32 output within 1e-5 of the
      plain version, bf16 output rel-RMS); max-abs and rel-RMS error against
      the bound rel-RMS <= 1e-2 (for the residual stack also over its first
      row tile alone); kernel / plain / library device times (torch.profiler's sum
@@ -71,6 +82,7 @@ INT8_FP32_BOUND = 1e-5  # W8A8 fp32 output vs plain (tests/test_quant.py:68)
 REL_RMS_BOUND = 1e-2   # bf16 kernel vs plain (PARITY.md: bf16 vs fp32 1.05e-2)
 
 VOICE = os.path.join(REPO, "tests", "data", "voice.wav")
+DEVICE = "cuda"             # the serving requests' ECHO_DEVICE
 TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
         "bedtime story.")
 STREAM_TOTAL = 640          # request (e): growing_schedule(640)
@@ -87,6 +99,21 @@ STREAM_TOTAL = 640          # request (e): growing_schedule(640)
 # the one-shot bf16 decode is.
 JAX_STREAM_BOUND = 0.05
 STREAM_BF16_RATIO = 1.25
+# request (f): two chunks under the handler's audio-aware chunking
+HANDLER_TEXT = (
+    "The lighthouse keeper climbed the spiral stairs at dusk and lit the "
+    "great lamp for the ships. Far out beyond the reef a single fishing "
+    "boat rocked gently on the calm and quiet swell.")
+# request (h): one text per request of the micro-batch
+BATCH_TEXTS = (
+    "Good morning, and welcome to the station.",
+    "The next train leaves from platform four.",
+    "Please keep your belongings with you at all times.",
+    "Tickets are available at the machines by the entrance.",
+    "The weather today is mild with a light breeze.",
+    "Thank you for calling, how can I help you?",
+    "Your order has been shipped and will arrive soon.",
+    "The meeting has been moved to three in the afternoon.")
 LONG_TEXT = (
     "The lighthouse keeper climbed the spiral stairs every evening at "
     "dusk, counting the steps as his father had taught him, and lit the "
@@ -106,7 +133,13 @@ def timed(fn, reps: int) -> dict:
     the device intervals (kernels, copies, sets) that `reps` calls queue,
     as torch.profiler reads them, over reps; `by_name`, that sum split by
     kernel name; `host_us`, the host's microseconds to issue one call (the
-    wall time of `reps` calls queued without a synchronise, over reps)."""
+    wall time of `reps` calls queued without a synchronise, over reps).
+
+    Every call queues the same device work, so a whole trace holds each
+    name's events a positive multiple of `reps` times; a trace that does
+    not (the profiler now and then drops some of a kernel's events, which
+    would read several times too fast) is taken again, at most three
+    times, and then raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -117,24 +150,52 @@ def timed(fn, reps: int) -> dict:
         fn()
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device events: take it
-    # again (at most three times) rather than report nothing
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, count = {}, {}
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 span = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + span
+                count[ev.name] = count.get(ev.name, 0) + 1
+        short = {k: n for k, n in count.items() if n % reps}
         ms = sum(by_name.values())
-        if ms > 0:
+        if ms > 0 and not short:
             return dict(ms=ms, by_name=by_name, host_us=host_us)
-        log("  (torch.profiler saw no device time; tracing again)")
-    raise AssertionError("torch.profiler saw no device time")
+        log(f"  (torch.profiler: device time {ms:.4f} ms, events not a "
+            f"multiple of {reps} calls: {short}; tracing again)")
+    raise AssertionError(f"torch.profiler dropped device events in three "
+                         f"traces of {reps} calls")
+
+
+def host_us_paired(fn_a, fn_b, reps: int = 50, rounds: int = 41) -> dict:
+    """The host's microseconds to issue one call of fn_a and of fn_b:
+    rounds of `reps` calls each, the two in turns (a, b, b, a, ...), each
+    round ended by a synchronise.  `a_us` and `b_us` are the median round
+    of each; `diff_us` the median of the rounds' differences b - a, with
+    its quartiles in `diff_q_us`.  Turns keep a drift of the shared host's
+    load out of the difference; the quartiles say whether it is resolved
+    (both on one side of 0)."""
+    import torch
+    times = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            fn = (fn_a, fn_b)[i]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[i].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    diff = np.subtract(times[1], times[0])
+    return dict(a_us=float(np.median(times[0])),
+                b_us=float(np.median(times[1])),
+                diff_us=float(np.median(diff)),
+                diff_q_us=[float(x) for x in np.percentile(diff, [25, 75])])
 
 
 def errors(got, want) -> tuple:
@@ -154,6 +215,23 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
     t_ops = ops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+# launch counters: {name: (wrapper, attribute)}, reset just before a
+# request and read just after it
+def _reset(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read(counters) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0) -> dict:
+    return {"joint_attention": attn, "joint_attention_kv8": kv8,
+            "int8_matmul": int8, "res_stack": res,
+            "res_stack_stream": res_stream}
 
 
 # ---------------------------------------------------------------------------
@@ -195,16 +273,20 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
-                   n_lat: int = 0, lat_valid: int = 0):
+                   n_lat: int = 0, lat_valid: int = 0, b: int = 1,
+                   spk_lens=None):
     """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
     quantize_kv_int8 of the same bf16 K/V) and passes their scales.  With
     n_lat, the static columns are [latent, text, speaker] as a streamed
     block after the first has them, the latent columns from lat_valid on
-    masked in every row (positions at or past the block's start)."""
+    masked in every row (positions at or past the block's start).  b is
+    the static K/V batch (a micro-batch of b requests; GB = G * b rows,
+    G-major); spk_lens gives each KV row's valid speaker columns (the rest
+    masked, as a batch padded to one speaker bucket is)."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
     from echo_tts_torch.ops import quant
-    h, dh, b = 16, 128, 1
+    h, dh = 16, 128
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -217,14 +299,23 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     n_text = 96                       # real bytes of a short prompt
     text = torch.zeros((t,), dtype=torch.bool, device=dev)
     text[n_lat:n_lat + min(n_text, t_text)] = True
-    spk = torch.zeros((t,), dtype=torch.bool, device=dev)
-    spk[n_lat + t_text:] = True
+    spk_cols = torch.zeros((t,), dtype=torch.bool, device=dev)
+    spk_cols[n_lat + t_text:] = True
     lat = torch.zeros((t,), dtype=torch.bool, device=dev)
     lat[:lat_valid] = True
-    cond = lat | text | spk
-    rows = ([cond, lat | spk, lat | text][:gb] if gb == 3 else [cond] * gb)
-    mask = torch.stack(rows)          # CFG branches blank whole segments
-    col_scale = torch.where(spk, 1.5, 1.0).float()
+    rows = []
+    g_branches = gb // b
+    for g in range(g_branches):       # G-major: row g * b + i reads KV row i
+        for i in range(b):
+            spk = spk_cols.clone()
+            if spk_lens is not None:
+                spk[n_lat + t_text + spk_lens[i]:] = False
+            cond = lat | text | spk
+            # CFG branches blank whole segments
+            rows.append([cond, lat | spk, lat | text][g] if g_branches == 3
+                        else cond)
+    mask = torch.stack(rows)
+    col_scale = torch.where(spk_cols, 1.5, 1.0).float()
     sm = dh ** -0.5
     kw = dict(sm_scale=sm)
     kv_bytes = 2                      # per static K/V element
@@ -244,6 +335,8 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     ref = ja.joint_attention_plain(*args, **kw)
     max_abs, rel = errors(out, ref)
     latent = f" latent {lat_valid}/{n_lat}" if n_lat else ""
+    latent += f" B={b}" if b > 1 else ""
+    latent += f" speaker columns {list(spk_lens)}" if spk_lens else ""
     name = (f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} "
             f"T={t}{latent}")
     if rel > REL_RMS_BOUND:
@@ -255,9 +348,9 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     # pre-scaled and the bias as an additive mask; the port never calls it
     import torch.nn.functional as F
     kb = torch.cat([ks, (kt * col_scale[None, :, None, None].to(kt.dtype))
-                    .expand(gb, t, h, dh)], 1).transpose(1, 2).contiguous()
+                    .repeat(gb // b, 1, 1, 1)], 1).transpose(1, 2).contiguous()
     vb = torch.cat([vs, (vt * col_scale[None, :, None, None].to(vt.dtype))
-                    .expand(gb, t, h, dh)], 1).transpose(1, 2).contiguous()
+                    .repeat(gb // b, 1, 1, 1)], 1).transpose(1, 2).contiguous()
     qb = q.transpose(1, 2).contiguous()
     bias = torch.where(mask, 0.0, ja.MASK_VALUE).float()
     am = torch.cat([torch.zeros((gb, s), device=dev), bias], 1)[:, None, None, :]
@@ -274,18 +367,137 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
                + (" int8 K/V" if kv8 else "") + latent, max_abs_err=max_abs,
                rel_rms=rel, ms=kernel_ms, host_us=kernel["host_us"],
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, bound_share=b_ms / kernel_ms)
     log(f"  attention {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
         f" (bound {REL_RMS_BOUND}) kernel_ms {kernel_ms:.4f} host_us "
         f"{kernel['host_us']:.1f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
-        f"({b_by})")
+        f"({b_by}), {100 * b_ms / kernel_ms:.1f} % of the bound")
     return res
 
 
-def res_stack_inputs(c: int, length: int, seed: int):
+def attention_backward_case(gb: int, s: int, t: int, seed: int):
+    """Kernel A under grad: the forward through the autograd Function that
+    carries the kernel (its output the kernel's, its launch counted), the
+    gradients of q, k_self, v_self and the static K/V from its backward,
+    against autograd through joint_attention_plain on the same bf16
+    inputs and the same output gradient (bound rel-RMS 1e-2).  Times one
+    forward + backward: the Function's, the plain version's and SDPA's
+    (yardstick).  Also the host microseconds of one call without grad, in
+    turns: the wrapper (which launches the kernel directly), and the same
+    launch through the Function, which a wrapper that always took it would
+    pay."""
+    import torch
+    import torch.nn.functional as F
+    from echo_tts_torch.ops import joint_attention as ja
+    h, dh, b = 16, 128, 1
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    base = [rnd(gb, s, h, dh), rnd(gb, s, h, dh), rnd(gb, s, h, dh),
+            rnd(b, t, h, dh), rnd(b, t, h, dh)]
+    ct = rnd(gb, s, h, dh)
+    mask = torch.ones((gb, t), dtype=torch.bool, device=dev)
+    mask[1, :768] = False                       # uncond text
+    mask[2, 768:] = False                       # uncond speaker
+    col_scale = torch.ones((t,), device=dev)
+    col_scale[768:] = 1.5
+    sm = dh ** -0.5
+    names = ("q", "k_self", "v_self", "k_static", "v_static")
+
+    def grads(fn):
+        leaves = [x.detach().clone().requires_grad_() for x in base]
+        out = fn(*leaves, mask, col_scale, sm_scale=sm)
+        out.backward(ct)
+        return out.detach(), [x.grad for x in leaves]
+
+    before = ja.fused_joint_attention.launches
+    out_k, g_k = grads(ja.fused_joint_attention)
+    torch.cuda.synchronize()
+    launched = ja.fused_joint_attention.launches - before
+    out_p, g_p = grads(ja.joint_attention_plain)
+    with torch.no_grad():
+        out_nograd = ja.fused_joint_attention(*base, mask, col_scale,
+                                              sm_scale=sm)
+    name = f"joint attention backward GB={gb} S={s} T={t}"
+    if launched != 1 or not torch.equal(out_k, out_nograd):
+        raise AssertionError(f"{name}: the forward under grad launched the "
+                             f"kernel {launched} times; its output equals the "
+                             f"kernel's without grad: "
+                             f"{torch.equal(out_k, out_nograd)}")
+    errs = {n: errors(a, w) for n, a, w in zip(names, g_k, g_p)}
+    errs["out"] = errors(out_k, out_p)
+    worst = max(r for _, r in errs.values())
+    if worst > REL_RMS_BOUND:
+        raise AssertionError(f"{name}: rel-RMS {errs} > {REL_RMS_BOUND}")
+
+    def fwd_bwd(fn):
+        leaves = [x.detach().requires_grad_() for x in base]
+        return lambda: fn(*leaves, mask, col_scale, sm_scale=sm).backward(ct)
+
+    kernel = timed(fwd_bwd(ja.fused_joint_attention), 10)
+    plain_ms = timed(fwd_bwd(ja.joint_attention_plain), 5)["ms"]
+    # yardstick: SDPA forward + backward on [self | static], as in
+    # attention_case
+    kb = torch.cat([base[1], (base[3] * col_scale[None, :, None, None]
+                              .to(torch.bfloat16)).expand(gb, t, h, dh)],
+                   1).transpose(1, 2).contiguous().requires_grad_()
+    vb = torch.cat([base[2], (base[4] * col_scale[None, :, None, None]
+                              .to(torch.bfloat16)).expand(gb, t, h, dh)],
+                   1).transpose(1, 2).contiguous().requires_grad_()
+    qb = base[0].transpose(1, 2).contiguous().requires_grad_()
+    am = torch.cat([torch.zeros((gb, s), device=dev),
+                    torch.where(mask, 0.0, ja.MASK_VALUE)], 1)[:, None, None, :]
+    am = am.to(torch.bfloat16)
+    ctb = ct.transpose(1, 2).contiguous()
+    library_ms = timed(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=am, scale=sm).backward(ctb), 10)["ms"]
+    # forward 2 matmuls (Q K^T, P V), backward 4 (dV, dP, dQ, dK; P's
+    # recompute is not counted), each 2 * GB * H * S * (S + T) * Dh
+    flops = 12.0 * gb * h * s * (s + t) * dh
+    # q, k_self, v_self, the static K/V and the output gradient read once;
+    # the output and the five gradients written once; mask, column scale
+    nbytes = ((4 * gb * s * h * dh + 2 * b * t * h * dh) * 2 * 2
+              + gb * t + t * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    # what the autograd Function would add to a call without grad: the
+    # launch alone (the wrapper's path without grad) against the launch
+    # through the Function (its path under grad), paired in turns
+    with torch.no_grad():
+        args = (*base, mask, col_scale)
+        host = host_us_paired(
+            lambda: ja._launch(*args, sm),
+            lambda: ja._KernelWithPlainGrad.apply(ja._launch, sm, *args))
+    res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh} forward+backward",
+               max_abs_err=max(a for a, _ in errs.values()), rel_rms=worst,
+               rel_rms_by_tensor={k: v[1] for k, v in errs.items()},
+               ms=kernel["ms"], host_us=kernel["host_us"], plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / kernel["ms"],
+               host_us_no_grad_launch=host["a_us"],
+               host_us_no_grad_function=host["b_us"],
+               host_us_function_cost=host["diff_us"],
+               host_us_function_cost_quartiles=host["diff_q_us"])
+    log(f"  attention backward {res['shape']}: rel_rms by tensor "
+        f"{ {k: f'{v[1]:.3e}' for k, v in errs.items()} } (bound "
+        f"{REL_RMS_BOUND}); kernel forward + plain-recompute backward ms "
+        f"{kernel['ms']:.4f} host_us {kernel['host_us']:.1f} plain_ms "
+        f"{plain_ms:.4f} library_ms (SDPA fwd+bwd) {library_ms:.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}), {100 * b_ms / kernel['ms']:.1f} % of the "
+        f"bound; host_us per call without grad: launch {host['a_us']:.1f}, "
+        f"through the autograd Function {host['b_us']:.1f}, paired "
+        f"difference {host['diff_us']:.1f} (quartiles "
+        f"{host['diff_q_us'][0]:.1f}, {host['diff_q_us'][1]:.1f})")
+    return res
+
+
+def res_stack_inputs(c: int, length: int, seed: int, batch: int = 1):
     """(rnd, x, args, weights): kernel B's inputs at one shape, bf16 on the
-    card, and the generator-backed rnd(shape, std) that drew them."""
+    card (x (batch, length, c)), and the generator-backed rnd(shape, std)
+    that drew them."""
     import torch
     from echo_tts_torch.ops import res_stack as rs
     dev = "cuda"
@@ -294,7 +506,7 @@ def res_stack_inputs(c: int, length: int, seed: int):
     def rnd(shape, std):
         return (torch.randn(shape, generator=g, device=dev) * std).to(torch.bfloat16)
 
-    x = rnd((1, length, c), 0.5)
+    x = rnd((batch, length, c), 0.5)
     w1 = rnd((3, 7, c, c), (7 * c) ** -0.5)
     w2 = rnd((3, c, c), c ** -0.5)
     # biases large enough that a kernel whose context before the sequence
@@ -307,11 +519,12 @@ def res_stack_inputs(c: int, length: int, seed: int):
     return rnd, x, args, rs.ResStackWeights(*args)
 
 
-def res_stack_case(c: int, length: int, approx: bool, seed: int):
+def res_stack_case(c: int, length: int, approx: bool, seed: int,
+                   batch: int = 1):
     import torch
     from echo_tts_torch.models.dac.conv import residual_unit
     from echo_tts_torch.ops import res_stack as rs
-    _, x, args, weights = res_stack_inputs(c, length, seed)
+    _, x, args, weights = res_stack_inputs(c, length, seed, batch)
     w1, b1, a1, w2, b2, a2 = args
 
     out = rs.fused_res_stack(x, weights, approx_snake=approx)
@@ -327,7 +540,8 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
             else rs.HALO + rs.block_length(cp))
     _, rel_head = errors(out[:, :head], ref[:, :head])
     if rel > REL_RMS_BOUND or rel_head > REL_RMS_BOUND:
-        raise AssertionError(f"res stack C={c} L={length} approx={approx}: "
+        raise AssertionError(f"res stack C={c} L={length} approx={approx} "
+                             f"batch {batch}: "
                              f"rel-RMS {rel:.3e}, first {head} frames "
                              f"{rel_head:.3e}, bound {REL_RMS_BOUND}")
     reps = 5 if length > 4096 else 50
@@ -348,10 +562,11 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int):
         return y
 
     unrolled_ms = timed(unrolled, max(3, reps // 5))["ms"]
-    flops = 3 * 2.0 * 8 * c * c * length
-    nbytes = 2 * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
+    flops = 3 * 2.0 * 8 * c * c * length * batch
+    nbytes = 2 * batch * length * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
     b_ms, b_by = bound(flops, nbytes)
-    res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}",
+    res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}"
+               + (f" batch {batch}" if batch > 1 else ""),
                max_abs_err=max_abs, rel_rms=max(rel, rel_head), ms=kernel_ms,
                host_us=kernel["host_us"], plain_ms=plain_ms, library_ms=None,
                unrolled_ms=unrolled_ms, bound_ms=b_ms, bound_by=b_by,
@@ -512,10 +727,22 @@ def phase_kernels():
                       [(3, 40, 778, 0, 0), (3, 320, 938, 160, 70),
                        (1, 80, 938, 160, 10), (3, 320, 1098, 320, 70)])]
     att += att_stream
+    # micro-batched passes (request h): a KV batch of B = 2 requests (GB = 6
+    # on CFG steps) and of B = 8 (GB = 24 on CFG steps, 8 else), the eight
+    # rows' speakers padded to one bucket with their own lengths masked
+    spk_lens = [10, 8, 4, 0, 10, 6, 2, 10]
+    att_batch = [attention_case(6, 640, 778, seed=100, b=2),
+                 attention_case(24, 640, 778, seed=101, b=8, spk_lens=spk_lens),
+                 attention_case(8, 640, 778, seed=102, b=8, spk_lens=spk_lens)]
+    att += att_batch
     # int8 static K/V at request (d)'s shapes (GB=3 and 1, T=778) and at
-    # the longest static K/V
+    # the longest static K/V; and over a KV batch of 8
     att8 = [attention_case(gb, 640, t, seed=30 + i, kv8=True)
             for i, (gb, t) in enumerate([(3, 778), (1, 778), (3, 2368)])]
+    att8.append(attention_case(24, 640, 778, seed=103, kv8=True, b=8,
+                               spk_lens=spk_lens))
+    # kernel A under grad (the autograd Function, backward by recompute)
+    att_bwd = attention_backward_case(3, 640, 778, seed=104)
     att8 += [r for r in edges[:4] if "int8" in r["shape"]]
     att += [r for r in edges[:4] if "int8" not in r["shape"]]
     # every (M, K, N) the W8A8 DiT gives kernel C: M = 1920 on CFG steps
@@ -535,6 +762,10 @@ def phase_kernels():
                 (64, 1310720, False), (128, 655360, False),
                 (256, 163840, False), (96, 1310720, False),
                 (384, 163840, False), (96, 300, True), (384, 40, False)])]
+    # request (h)'s decode slices: batch 4 at the decoder's last block
+    # (C = 96) and at its first kernel width (C = 384)
+    rst += [res_stack_case(c, length, True, seed=110 + i, batch=4)
+            for i, (c, length) in enumerate([(96, 1310720), (384, 163840)])]
     # the history form at the decoder's shapes for blocks of 40 and 320
     # latents (L = 256, 1024, 2048 frames a latent at C = 384, 192, 96),
     # with sin2_poly, and an encoder-side shape (C = 64) with exact sin
@@ -543,14 +774,14 @@ def phase_kernels():
                 [(384, 10240, True), (192, 40960, True), (96, 81920, True),
                  (384, 81920, True), (192, 327680, True), (96, 655360, True),
                  (64, 2048, False)])]
-    return att, att8, rst, mm
+    return att, att8, att_bwd, rst, mm
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def phase_main_path():
+def phase_main_path(card: str):
     import torch
     from echo_tts_torch import SAMPLER_DEFAULTS
     from echo_tts_torch.models import dit as tdit
@@ -651,15 +882,14 @@ def phase_main_path():
     request_stats = {}
     try:
         for name, run, n_samples, n_enc, int8_modes in requests:
-            for fn, attr in counters.values():
-                setattr(fn, attr, 0)
+            _reset(counters)
             n_dec = len(decoded)
             torch.cuda.synchronize()
             t = time.perf_counter()
             audio, _ = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+            got = _read(counters)
             for k, v in got.items():
                 launches[k] += v
             attn = n_layers * n_steps * n_samples
@@ -738,6 +968,22 @@ def phase_main_path():
     for k, v in got.items():
         launches[k] += v
     incremental_check(models, lat, mask, ids_t, tmask_t)
+    del qmodels
+    serve_models.clear_models()
+
+    # the serving layer: (f) the handler's one-shot job, (g) a W8A8
+    # streaming job, (h) a micro-batched pass
+    import shutil
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        os.makedirs(os.path.join(work, "voices"))
+        shutil.copy(VOICE, os.path.join(work, "voices", "voice.wav"))
+        for got in (request_handler(counters, work, n_layers, n_voice_chunks),
+                    request_stream_w8a8(counters, work, n_layers, spl,
+                                        n_voice_chunks),
+                    request_batch(models, counters, card)):
+            for k, v in got.items():
+                launches[k] += v
     return launches
 
 
@@ -774,8 +1020,7 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
         blocks.append(latents.clone())
         return out
 
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    _reset(counters)
     sst.ae_decode_block = recording_decode
     try:
         torch.cuda.synchronize()
@@ -787,7 +1032,7 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
             chunks.append(chunk)
     finally:
         sst.ae_decode_block = block_decode
-    got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    got = _read(counters)
     n = len(schedule)
     want = {"joint_attention": cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n,
             "joint_attention_kv8": 0, "int8_matmul": 0,
@@ -892,6 +1137,350 @@ def incremental_check(models, lat, mask, ids, tmask) -> None:
         f"{effect:.3e} (must exceed 1e-3)")
 
 
+def request_handler(counters, work: str, n_layers: int,
+                    n_voice_chunks: int) -> dict:
+    """Request (f): the serving handler's one-shot job, a two-chunk text
+    with voice.wav from a voices directory, boundary_mode "normalize",
+    seed 7, at the published width (handler.handler with _allow_random:
+    serve.models.load_models builds the seeded random bundle).  Checks the
+    envelope, the launch counts (2 x 960 kernel A; kernel B: one voice
+    encode, 3 calls, and 2 decodes, 6), each chunk's audio bit for bit
+    against sample_pipeline on the same models with seeds 7 and 1007 and
+    the cached voice latent; a second identical job (the voice cache: no
+    encode launches); and health_check.  Returns the launch counts."""
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.pipeline import audio_io, pipeline as pl
+    from echo_tts_torch.serve import handler as th
+    from echo_tts_torch.serve import models as serve_models
+    from echo_tts_torch.serve.config import load_config
+
+    cfg = load_config({"AUDIO_VOICES_DIR": os.path.join(work, "voices"),
+                       "OUTPUT_AUDIO_DIR": os.path.join(work, "out"),
+                       "HF_TOKEN": "unused", "ECHO_DEVICE": DEVICE})
+    serve_models.clear_models()
+    job = {"input": {"text": HANDLER_TEXT, "speaker_voice": "voice.wav",
+                     "boundary_mode": "normalize", "seed": 7,
+                     "_allow_random": True}}
+    chunk_runs = []
+    run_pipeline = th.sample_pipeline
+
+    def recording_pipeline(models, fn, chunk, spk, rng_seed, **kw):
+        audio, text = run_pipeline(models, fn, chunk, spk, rng_seed, **kw)
+        chunk_runs.append((chunk, rng_seed, audio))
+        return audio, text
+
+    n_steps = SAMPLER_DEFAULTS["num_steps"]
+    th.sample_pipeline = recording_pipeline
+    total = dict.fromkeys(counters, 0)
+    try:
+        for attempt, want in (("first", _want(attn=2 * n_layers * n_steps,
+                                              res=3 * n_voice_chunks + 2 * 3)),
+                              ("cached voice", _want(attn=2 * n_layers * n_steps,
+                                                     res=2 * 3))):
+            _reset(counters)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = th.handler(job, cfg=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = _read(counters)
+            for k, v in got.items():
+                total[k] += v
+            name = f"f: handler one-shot, {attempt} job"
+            if out.get("status") != "success":
+                raise AssertionError(f"{name}: {out.get('error_type')}: "
+                                     f"{out.get('error')}\n"
+                                     f"{out.get('traceback')}")
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, want {want}")
+            md = out["metadata"]
+            stages = md["stage_timings"]
+            if (md["num_chunks"] != 2 or md["seed"] != 7
+                    or md["device"] != DEVICE
+                    or stages["synthesis"]["calls"] != 2
+                    or not {"model_load", "voice_encode", "synthesis",
+                            "host_dsp", "encode_upload"} <= set(stages)
+                    or not os.path.isfile(out["local_path"])):
+                raise AssertionError(f"{name}: envelope {out}")
+            if out["codec"] == "wav":
+                audio, sr = audio_io.read_wav(out["local_path"])
+                if (sr != 44100 or audio.shape[1] == 0
+                        or not np.isfinite(audio).all()):
+                    raise AssertionError(f"{name}: WAV {audio.shape} {sr}")
+            log(f"  request {name}: {wall * 1e3:.1f} ms wall, "
+                f"{md['duration_seconds']} s audio, envelope rtf {md['rtf']}; "
+                f"launches {got}; codec {out['codec']}; stage_timings "
+                f"{ {k: v['seconds'] for k, v in stages.items()} }")
+    finally:
+        th.sample_pipeline = run_pipeline
+    hmodels = serve_models.load_models(None, allow_random=True)
+    lat, mask, _ = th.get_voice_latent(
+        hmodels, os.path.join(cfg.voices_dir, "voice.wav"))
+    sample_fn, _ = th.build_sample_fn()
+    for chunk, seed, audio in chunk_runs[:2]:
+        want, _ = pl.sample_pipeline(hmodels, sample_fn, chunk, None, seed,
+                                     speaker_latent=lat, speaker_mask=mask)
+        if not np.array_equal(audio, want):
+            raise AssertionError(
+                f"f: chunk of seed {seed}: handler audio {audio.shape} is not "
+                f"sample_pipeline's {want.shape} bit for bit (max-abs "
+                f"{float(np.abs(audio - want).max()) if audio.shape == want.shape else 'n/a'})")
+    seeds = [seed for _, seed, _ in chunk_runs]
+    if seeds != [7, 1007, 7, 1007]:
+        raise AssertionError(f"f: chunk seeds {seeds}")
+    health = th.health_check(cfg)
+    if (health["device"]["platform"] != DEVICE or not health["models_loaded"]
+            or health["dit_quant"] != "none"):
+        raise AssertionError(f"f: health_check {health}")
+    log(f"  request f: chunks (seeds {seeds[:2]}) equal sample_pipeline's bit "
+        f"for bit; health_check device {health['device']}, models_loaded "
+        f"{health['models_loaded']}, dit_quant {health['dit_quant']}")
+    return total
+
+
+def request_stream_w8a8(counters, work: str, n_layers: int, spl: int,
+                        n_voice_chunks: int) -> dict:
+    """Request (g): a streaming job through the handler under
+    ECHO_DIT_QUANT=int8, after clear_models(): chunk_sizes [40, 80] with
+    voice.wav.  Checks the block events, the final envelope and the
+    launch counts (kernel A 24 x 40 per block over bf16 static K/V, kernel
+    C 8 per attention, kernel B 3 one-shot calls for the voice encode and
+    3 history-form calls per block).  Returns the launch counts."""
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.ops.quant import DIT_BLOCK_QUANT_KEYS
+    from echo_tts_torch.serve import handler as th
+    from echo_tts_torch.serve import models as serve_models
+    from echo_tts_torch.serve.config import load_config
+
+    cfg = load_config({"AUDIO_VOICES_DIR": os.path.join(work, "voices"),
+                       "OUTPUT_AUDIO_DIR": os.path.join(work, "out"),
+                       "HF_TOKEN": "unused", "ECHO_DEVICE": DEVICE})
+    schedule = [40, 80]
+    saved = os.environ.get("ECHO_DIT_QUANT")
+    os.environ["ECHO_DIT_QUANT"] = "int8"
+    events, arrivals = [], []
+    try:
+        serve_models.clear_models()
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def on_block(event):
+            arrivals.append(time.perf_counter() - t0)
+            events.append(event)
+
+        out = th.handler({"input": {
+            "text": TEXT, "stream": True, "chunk_size": 40,
+            "chunk_sizes": schedule, "speaker_voice": "voice.wav", "seed": 5,
+            "_allow_random": True}}, cfg=cfg, on_block=on_block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        quant = serve_models.served_quant_mode()
+    finally:
+        if saved is None:
+            os.environ.pop("ECHO_DIT_QUANT")
+        else:
+            os.environ["ECHO_DIT_QUANT"] = saved
+        serve_models.clear_models()
+    name = f"g: handler stream job, ECHO_DIT_QUANT=int8, chunk_sizes={schedule}"
+    if out.get("status") != "success":
+        raise AssertionError(f"{name}: {out.get('error_type')}: "
+                             f"{out.get('error')}\n{out.get('traceback')}")
+    attn = n_layers * SAMPLER_DEFAULTS["num_steps"] * len(schedule)
+    want = _want(attn=attn, int8=len(DIT_BLOCK_QUANT_KEYS) * attn,
+                 res=3 * n_voice_chunks, res_stream=3 * len(schedule))
+    if got != want or quant != "int8":
+        raise AssertionError(f"{name}: launches {got}, want {want}; served "
+                             f"quant mode {quant}")
+    spans = [(e["index"], e["latent_start"], e["latent_end"], e["is_last"])
+             for e in events]
+    if (spans != [(0, 0, 40, False), (1, 40, 120, True)]
+            or not all(os.path.isfile(e["local_path"]) for e in events)
+            or [e["duration_seconds"] for e in events]
+            != [round(n * spl / th.SAMPLE_RATE, 3) for n in schedule]
+            or out["metadata"]["num_blocks"] != 2 or len(out["blocks"]) != 2
+            or not os.path.isfile(out["local_path"])
+            or out["metadata"]["device"] != DEVICE):
+        raise AssertionError(f"{name}: events {spans}, envelope {out}")
+    log(f"  request {name}: {wall * 1e3:.1f} ms wall (model load and "
+        f"quantization included); launches {got}; blocks "
+        f"{[(e['latent_start'], e['latent_end']) for e in events]} arrived "
+        f"{[round(a * 1e3, 1) for a in arrivals]} ms, first_block_seconds "
+        f"{out['metadata']['first_block_seconds']}, envelope rtf "
+        f"{out['metadata']['rtf']}")
+    return got
+
+
+def request_batch(models, counters, card: str) -> dict:
+    """Request (h): eight concurrent submits to MicroBatchServer(max_batch=8)
+    with the same sampler parameters, four with voice.wav's cached latent
+    and four without, seeds including a negative one and ones past 2**32.
+    Checks that one batch pass ran (960 kernel A launches, 480 at GB = 24
+    and 480 at GB = 8 over a KV batch of 8; 2 x 3 kernel B decode calls at
+    batch 4), that each request's starting noise is its single-request
+    draw bit for bit, and that its latents are within rel-RMS 1e-2 of the
+    same request run alone through sample_pipeline.  Prints the batch's
+    wall time and audio seconds per wall second.  Returns the launch
+    counts."""
+    import collections
+    import threading
+
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.models.dac import dac as tdac
+    from echo_tts_torch.pipeline import pipeline as pl
+    from echo_tts_torch.serve import batcher as sb
+    from echo_tts_torch.serve import handler as th
+    from echo_tts_torch.sampler.euler import build_step_plan
+    from echo_tts_torch.serve import server as server_mod
+    from echo_tts_torch.serve.server import MicroBatchServer
+
+    lat, mask, bucket = th.get_voice_latent(models, VOICE)
+    seeds = [11, -3, 2 ** 32 + 5, 4242, 7, -(2 ** 40), 2 ** 33 + 1, 99]
+    reqs = [sb.BatchRequest(text, seed,
+                            speaker_latent=lat if i < 4 else None,
+                            speaker_mask=mask if i < 4 else None,
+                            request_id=f"h{i}")
+            for i, (text, seed) in enumerate(zip(BATCH_TEXTS, seeds))]
+    params = dict(SAMPLER_DEFAULTS)
+    sampled, attn_rows, res_rows = [], collections.Counter(), []
+    order = []      # the requests in the batch's row order (arrival order)
+    run_pass = server_mod.run_batch
+    run_sampler = sb.sample_euler_cfg_independent_guidances
+    run_attention, run_res_stack = tdit.fused_joint_attention, tdac.fused_res_stack
+
+    def recording_sampler(*a, **k):
+        out = run_sampler(*a, **k)
+        sampled.append((k["initial_noise"].clone(), out.clone()))
+        return out
+
+    def recording_pass(models_, batch, *a, **k):
+        order.append([r.request_id for r in batch])
+        return run_pass(models_, batch, *a, **k)
+
+    def recording_attention(q, *a, **k):
+        attn_rows[(q.shape[0], a[2].shape[0])] += 1
+        return run_attention(q, *a, **k)
+
+    def recording_res_stack(x, *a, **k):
+        res_rows.append(x.shape[0])
+        return run_res_stack(x, *a, **k)
+
+    server = MicroBatchServer(models, max_batch=8, max_wait_s=0.5)
+    barrier = threading.Barrier(len(reqs))
+    futures = [None] * len(reqs)
+
+    def submit(i):
+        barrier.wait()
+        futures[i] = server.submit(reqs[i], params)
+
+    server_mod.run_batch = recording_pass
+    sb.sample_euler_cfg_independent_guidances = recording_sampler
+    tdit.fused_joint_attention = recording_attention
+    tdac.fused_res_stack = recording_res_stack
+    try:
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(len(reqs))]
+        for th_ in threads:
+            th_.start()
+        for th_ in threads:
+            th_.join()
+        results = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+    finally:
+        server_mod.run_batch = run_pass
+        sb.sample_euler_cfg_independent_guidances = run_sampler
+        tdit.fused_joint_attention = run_attention
+        tdac.fused_res_stack = run_res_stack
+        server.shutdown()
+    stats = server.stats()
+    n_layers, n_steps = models.dit_cfg.num_layers, SAMPLER_DEFAULTS["num_steps"]
+    want = _want(attn=n_layers * n_steps, res=2 * 3)
+    plan = build_step_plan(n_steps, params["cfg_min_t"], params["cfg_max_t"],
+                           None, None, None, None)
+    n_cfg = int(plan.has_cfg.sum())
+    want_rows = {(24, 8): n_layers * n_cfg, (8, 8): n_layers * (n_steps - n_cfg)}
+    name = "h: MicroBatchServer(max_batch=8), 8 concurrent submits"
+    if (got != want or dict(attn_rows) != want_rows or res_rows != [4] * 6
+            or stats["batches"] != 1 or stats["completed"] != 8
+            or len(sampled) != 1 or len(order) != 1):
+        raise AssertionError(
+            f"{name}: launches {got}, want {want}; attention (GB, B) "
+            f"{dict(attn_rows)}, want {want_rows}; residual-stack batches "
+            f"{res_rows}; server {stats}; sampler passes {len(sampled)}")
+    if [r.request_id for r in results] != [r.request_id for r in reqs]:
+        raise AssertionError(f"{name}: results {[r.request_id for r in results]}")
+    # row j of the pass is request order[0][j]; put them in request order
+    rows = [order[0].index(r.request_id) for r in reqs]
+    noise, latents = (x[rows] for x in sampled[0])
+
+    # each request alone, through sample_pipeline with the handler's
+    # sample_fn; the noise that euler_sample_fn draws is recorded
+    drawn, singles = [], []
+    real_randn = torch.randn
+
+    def recording_randn(*a, **k):
+        out = real_randn(*a, **k)
+        if k.get("generator") is not None:
+            drawn.append(out.clone())
+        return out
+
+    sample_fn, _ = th.build_sample_fn(params)
+
+    def recording_fn(*a):
+        out = sample_fn(*a)
+        singles.append(out.clone())
+        return out
+
+    torch.randn = recording_randn
+    try:
+        for r in reqs:
+            pl.sample_pipeline(models, recording_fn, r.text, None, r.seed,
+                               speaker_latent=r.speaker_latent,
+                               speaker_mask=r.speaker_mask)
+    finally:
+        torch.randn = real_randn
+    bit_equal = [torch.equal(noise[i:i + 1], drawn[i]) for i in range(8)]
+    rels = [errors(latents[i:i + 1], singles[i])[1] for i in range(8)]
+    worst = int(np.argmax(rels))
+    if not all(bit_equal) or max(rels) > REL_RMS_BOUND:
+        raise AssertionError(
+            f"{name}: noise bit-equal to the single draws {bit_equal}; "
+            f"latents vs single runs rel-RMS {[f'{r:.3e}' for r in rels]} "
+            f"(bound {REL_RMS_BOUND})")
+    audio_s = sum(r.audio.shape[1] for r in results) / th.SAMPLE_RATE
+    for r in results:
+        if not np.isfinite(r.audio).all() or r.audio.shape[1] == 0:
+            raise AssertionError(f"{name}: {r.request_id} audio {r.audio.shape}")
+    log(f"  request {name}: one pass, launches {got}, attention (GB, B) "
+        f"{dict(attn_rows)}, residual-stack batches {res_rows}; noise "
+        f"bit-equal to each single draw: {all(bit_equal)} (seeds {seeds}); "
+        f"latents vs each request alone, rel-RMS "
+        f"{[f'{r:.3e}' for r in rels]}, worst {rels[worst]:.3e} (request "
+        f"h{worst}, seed {seeds[worst]}, {'voice' if worst < 4 else 'no voice'}"
+        f"; bound {REL_RMS_BOUND})")
+    log(f"  request h: batch wall {wall * 1e3:.1f} ms for {audio_s:.2f} s of "
+        f"audio: {audio_s / wall:.3f} audio seconds per wall second "
+        f"(information for throughput_rtf_b8; {card}); server {stats}")
+    return got
+
+
+def summary(case: dict, *extra) -> dict:
+    """A case's shape, times, bound and errors, for the kernels line."""
+    keys = ("shape", "ms", "host_us", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err", "rel_rms") + extra
+    return {k: case[k] for k in keys if k in case}
+
+
 def kernel_entry(name, source, replaces, cases, main, launches, **extra):
     """One entry of the {"kernels": [...]} line: the main case's numbers,
     and the worst error over all cases."""
@@ -908,17 +1497,18 @@ def kernel_entry(name, source, replaces, cases, main, launches, **extra):
 def main(argv) -> int:
     t_start = time.perf_counter()
     import torch
-    phase_device()
+    card = phase_device()
     phase_build()
     kernels_only = "--kernels-only" in argv
     # the main path runs before the kernels are timed: torch.profiler, which
     # times them, leaves tracing attached that slows the host-bound
     # sampler's wall time afterwards
-    launches = None if kernels_only else phase_main_path()
-    att, att8, rst, mm = phase_kernels()
+    launches = None if kernels_only else phase_main_path(card)
+    att, att8, att_bwd, rst, mm = phase_kernels()
     if kernels_only:
         # the kernels alone, to time two trees' kernels in one call
         print(json.dumps({"cases": dict(attention=att, attention_kv8=att8,
+                                        attention_backward=[att_bwd],
                                         res_stack=rst, int8_matmul=mm)}),
               flush=True)
         return 0
@@ -934,9 +1524,14 @@ def main(argv) -> int:
             launches["joint_attention"] + launches["joint_attention_kv8"],
             launches_bf16=launches["joint_attention"],
             launches_kv8=launches["joint_attention_kv8"],
-            kv8={k: att8[0][k] for k in ("shape", "ms", "host_us", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by",
-                                         "max_abs_err", "rel_rms")}),
+            kv8=summary(att8[0]),
+            # request h's CFG step (GB = 24 over a KV batch of 8)
+            kv_batch8=summary(next(r for r in att if " B=8" in r["shape"])),
+            backward=summary(att_bwd) | {
+                k: att_bwd[k] for k in ("host_us_no_grad_launch",
+                                        "host_us_no_grad_function",
+                                        "host_us_function_cost",
+                                        "host_us_function_cost_quartiles")}),
         # C=96 with the serving decoder's snake; launches count wrapper
         # calls, one per three-unit stack (three kernel launches each), of
         # the one-shot form and of the history form (request e); the
@@ -950,10 +1545,10 @@ def main(argv) -> int:
             launches_stream=launches["res_stack_stream"],
             unrolled_ms=rst[0]["unrolled_ms"],
             bound_share=rst[0]["bound_share"],
-            stream={k: rst_stream[k] for k in (
-                "shape", "ms", "host_us", "plain_ms", "unrolled_ms",
-                "library_ms", "bound_ms", "bound_by", "bound_share",
-                "max_abs_err", "rel_rms")}),
+            stream=summary(rst_stream, "unrolled_ms"),
+            # request h's decode slice at the decoder's last block
+            batch4=summary(next(r for r in rst if "batch 4" in r["shape"]),
+                           "unrolled_ms")),
         # M=1920 (a CFG step), w1/w3 (2048 -> 5888); max_abs_err is the
         # fp32 output's
         kernel_entry(

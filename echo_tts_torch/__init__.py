@@ -10,10 +10,13 @@ Layer map (each module mirrors its namesake in echo_tts_tpu/):
   sampler/   Euler CFG sampler, blockwise (streaming) sampler
   pipeline/  host text stack, DSP, audio IO, text->audio orchestration,
              streaming (block) encode and decode
-  serve/     the model cache and its quant mode (ECHO_DIT_QUANT);
-             stream_synthesize and its block schedules
+  serve/     the queue-worker handler (voice cache, metrics, storage,
+             config), the micro-batching server and its batched pass, the
+             model cache and its quant mode (ECHO_DIT_QUANT), presets and
+             buckets; stream_synthesize and its block schedules
   tools/     weight bridge from the JAX package's parameter trees; the
              device-time profile of the main path
+  utils/     StageTimer and trace() (torch.profiler)
 
 Entry points default to device="cuda" and raise without a CUDA device;
 pass device="cpu" to run the plain PyTorch path.  Nothing here imports JAX.

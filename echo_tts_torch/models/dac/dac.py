@@ -16,6 +16,7 @@ codec), the encoder always runs exact sin.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -255,8 +256,15 @@ def decode_zq(model: S1DAC, z_q: torch.Tensor) -> torch.Tensor:
     return decoder_forward(model.decoder, cfg, z)
 
 
+def decode_codes(model: S1DAC, codes: torch.Tensor) -> torch.Tensor:
+    """codes (B, 1 + n_codebooks, T) -> audio (B, T*frame_length, 1):
+    the quantizer's lookup, then decode_zq (autoencoder.py:486-496,
+    1102-1108)."""
+    return decode_zq(model, zq_from_codes(model.quantizer, model.cfg, codes))
+
+
 # ---------------------------------------------------------------------------
-# Analytic delay (autoencoder.py:1044-1068)
+# Analytic delay and length plumbing (autoencoder.py:1044-1108)
 # ---------------------------------------------------------------------------
 
 def _conv_layer_specs(cfg: DACConfig):
@@ -301,6 +309,32 @@ def get_delay(cfg: DACConfig) -> int:
             length = (length - 1) * s + d * (k - 1) + 1
         length = math.ceil(length)
     return (length - l_out) // 2
+
+
+def encode_with_lengths(model: S1DAC, audio: torch.Tensor,
+                        audio_lengths: Optional[torch.Tensor] = None):
+    """encode_codes with per-item lengths (autoencoder.py:1080-1100):
+    (codes (B, 1 + n_codebooks, T), indices_lens (B,) int32 =
+    ceil(valid samples / frame_length)); without audio_lengths every item
+    is the whole right-padded audio."""
+    cfg = model.cfg
+    length = audio.shape[1]
+    right = math.ceil(length / cfg.frame_length) * cfg.frame_length - length
+    if audio_lengths is None:
+        audio_lengths = torch.full((audio.shape[0],), length + right,
+                                   dtype=torch.int32, device=audio.device)
+    codes = encode_codes(model, audio)
+    indices_lens = torch.ceil(audio_lengths / cfg.frame_length).to(torch.int32)
+    return codes, indices_lens
+
+
+def decode_with_lengths(model: S1DAC, codes: torch.Tensor,
+                        feature_lengths: torch.Tensor):
+    """decode_codes with lengths (autoencoder.py:1102-1108): (audio
+    (B, T*frame_length, 1), audio_lengths (B,) = feature_lengths *
+    frame_length)."""
+    return (decode_codes(model, codes),
+            feature_lengths * model.cfg.frame_length)
 
 
 # ---------------------------------------------------------------------------

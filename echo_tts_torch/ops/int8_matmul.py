@@ -125,7 +125,9 @@ def int8_matmul_fused(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
 
     Raises on a shape `supported()` refuses, on every device.  CPU tensors
     run `int8_matmul_plain`; CUDA tensors launch kernel C and count the
-    launch in `int8_matmul_fused.launches`."""
+    launch in `int8_matmul_fused.launches`.  Raises, on every device, when
+    grad mode is on and x or w_scale requires grad: the kernel has no
+    backward."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     k = x.shape[-1]
     if w8.dtype != torch.int8 or w8.ndim != 2 or w8.shape[1] != k:
@@ -137,6 +139,11 @@ def int8_matmul_fused(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
     m = x.numel() // k if k else 0
     if not supported(m, k, n):
         raise ValueError(f"unsupported W8A8 kernel shape m={m} k={k} n={n}")
+    if torch.is_grad_enabled() and (x.requires_grad or w_scale.requires_grad):
+        raise RuntimeError(
+            "the W8A8 matmul has no gradient (the JAX package never "
+            "differentiates it); call it under torch.no_grad() or "
+            "torch.inference_mode(), or on tensors that do not require grad")
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w8, w_scale, out_dtype)
     if x.device.type != "cuda":

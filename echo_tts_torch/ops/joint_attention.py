@@ -18,6 +18,15 @@ Static K/V may be int8 (the opt-in KV mode, ops/quant.quantize_kv_int8)
 with `kv_scales=(ks, vs)`, (B, T, H) fp32: their per-column products with
 the column scale become the K and V scales.  Launches of that form are
 counted apart, in `fused_joint_attention.launches_kv8`.
+
+Gradients: where grad mode is on and an input requires grad, the kernel
+runs inside `_KernelWithPlainGrad`, whose backward recomputes through
+`joint_attention_plain` under autograd, as the JAX package's custom VJP
+recomputes through `_xla_attention` (joint_attention.py:404-434).  The
+int8 form has no gradient: it raises.  Calls without grad launch the
+kernel directly: through the Function a call costs the host 10-23 us
+more (chip_smoke.py's paired count on an H100 80GB HBM3 at 700 W), on a
+sampler pass of 960 calls that the host bounds.
 """
 from __future__ import annotations
 
@@ -162,6 +171,38 @@ def _launch(q, k_self, v_self, k_static, v_static, static_mask, col_scale,
     return out
 
 
+class _KernelWithPlainGrad(torch.autograd.Function):
+    """`forward_fn` (the kernel's launch) in the forward; in the backward,
+    joint_attention_plain recomputed under autograd and differentiated, so
+    that q, k_self, v_self, the float static K/V and the column scale get
+    the plain version's gradients."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, sm_scale, q, k_self, v_self, k_static,
+                v_static, static_mask, col_scale):
+        ctx.sm_scale = sm_scale
+        ctx.save_for_backward(q, k_self, v_self, k_static, v_static,
+                              static_mask, col_scale)
+        return forward_fn(q, k_self, v_self, k_static, v_static, static_mask,
+                          col_scale, sm_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_() if need else x
+                    for x, need in zip(ctx.saved_tensors, needs)]
+            out = joint_attention_plain(*args, sm_scale=ctx.sm_scale)
+            grads = iter(torch.autograd.grad(
+                out, [a for a, need in zip(args, needs) if need], grad_out))
+        return (None, None, *(next(grads) if need else None for need in needs))
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
 def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
                           v_self: torch.Tensor, k_static: torch.Tensor,
                           v_static: torch.Tensor, static_mask: torch.Tensor,
@@ -175,7 +216,9 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
     (B, T, H) fp32.  CPU tensors run `joint_attention_plain`; CUDA tensors
     launch the kernel and count the launch in
     `fused_joint_attention.launches` (bf16 static K/V) or
-    `fused_joint_attention.launches_kv8` (int8)."""
+    `fused_joint_attention.launches_kv8` (int8).  Under grad, the float
+    form carries the plain version's gradient (module docstring); the
+    int8 form raises."""
     gb, s, h, dh = q.shape
     b, t = k_static.shape[:2]
     if (k_self.shape != q.shape or v_self.shape != q.shape
@@ -199,12 +242,21 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
                          f"must be ({b}, {t}, {h}) each")
     if col_scale is not None and col_scale.shape != (t,):
         raise ValueError(f"col_scale {tuple(col_scale.shape)} must be ({t},)")
+    grad = _needs_grad(q, k_self, v_self, k_static, v_static, col_scale)
+    if grad and kv_scales is not None:
+        raise RuntimeError("joint attention over int8 static K/V has no "
+                           "gradient; run it without grad, or with bf16 or "
+                           "fp32 static K/V")
     if q.device.type == "cpu":
         return joint_attention_plain(q, k_self, v_self, k_static, v_static,
                                      static_mask, col_scale, sm_scale=sm_scale,
                                      kv_scales=kv_scales)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if grad:
+        return _KernelWithPlainGrad.apply(_launch, sm_scale, q, k_self, v_self,
+                                          k_static, v_static, static_mask,
+                                          col_scale)
     return _launch(q, k_self, v_self, k_static, v_static, static_mask,
                    col_scale, sm_scale, kv_scales)
 

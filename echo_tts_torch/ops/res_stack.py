@@ -270,7 +270,9 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
     CPU tensors run `res_stack_plain`; CUDA tensors launch the kernel, one
     launch per unit, and count the call (one per stack) in
     `fused_res_stack.launches`, or `.launches_stream` for the history
-    form."""
+    form.  Raises, on every device, when grad mode is on and an input
+    requires grad: the kernel has no backward, and its output must never
+    be a tensor cut from the graph."""
     if history is not None:
         if len(history) != len(DILATIONS):
             raise ValueError(f"history holds {len(history)} tensors, not "
@@ -280,6 +282,12 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
             if tuple(h.shape) != want or h.dtype != x.dtype:
                 raise ValueError(f"history {tuple(h.shape)} {h.dtype} must "
                                  f"be {want} {x.dtype}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights.plain_args(), *(history or ()))):
+        raise RuntimeError(
+            "the residual-stack kernel has no gradient (the JAX package "
+            "never differentiates it); call it under torch.no_grad() or "
+            "torch.inference_mode(), or on tensors that do not require grad")
     if x.device.type == "cpu":
         return res_stack_plain(x, *weights.plain_args(), approx_snake,
                                history)

@@ -84,6 +84,12 @@ def ae_decode(models: EchoModels, latents: torch.Tensor) -> torch.Tensor:
     return audio[..., 0].float()
 
 
+def ae_reconstruct(models: EchoModels, audio: torch.Tensor) -> torch.Tensor:
+    """Debug round trip, ae_decode(ae_encode(audio)) (reference:
+    inference.py:231-235)."""
+    return ae_decode(models, ae_encode(models, audio))
+
+
 @functools.lru_cache(maxsize=8)
 def _decode_state_template(dac_cfg: DACConfig, batch: int, dtype: torch.dtype,
                            device: torch.device) -> dict:

@@ -5,12 +5,12 @@ Counterpart of echo_tts_tpu/serve/models.py.  The bundle is an
 (`pipeline.load_models_from_dir`) or, for development and tests, seeded
 random weights (`pipeline.random_models`).  ECHO_DIT_QUANT=int8 serves the
 W8A8 DiT (`ops.quant.quantize_dit`): the mode changes only the modules,
-never a code path downstream.
+never a code path downstream.  The codec's decoder snake follows the
+device unless ECHO_SNAKE_APPROX says otherwise (`_serving_dac_config`).
 
 Not ported yet: the orbax bundle checkpoints of `_is_bundle_checkpoint`
 (they wait for the training slice's checkpoint tools; such a directory
-fails here for want of the safetensors), and the voice-cache clear in
-`clear_models` (it waits for the serving slice's handler).
+fails here for want of the safetensors).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..config import DACConfig, base_dac_config
 from ..device import resolve_device
 from ..ops.quant import dit_is_quantized, quantize_dit
 from ..pipeline.pipeline import EchoModels, load_models_from_dir, random_models
@@ -31,7 +32,20 @@ log = logging.getLogger("echo_tts_torch.serve")
 
 _CACHE_LOCK = threading.Lock()
 _MODELS: Optional[EchoModels] = None
-_MODELS_KEY = None  # (model_dir, dtype, random, quant_mode, device)
+_MODELS_KEY = None  # (model_dir, dtype, random, quant_mode, device, snake)
+
+
+def _serving_dac_config(device: torch.device) -> DACConfig:
+    """base_dac_config with the decoder's polynomial snake exactly when the
+    codec runs bf16, on the card (serve/models.py:34-50): its error is far
+    below bf16 rounding; on the CPU the codec is fp32 and keeps exact sin.
+    ECHO_SNAKE_APPROX=0/1 overrides the choice."""
+    env = os.environ.get("ECHO_SNAKE_APPROX")
+    if env is None:
+        approx = device.type == "cuda"
+    else:
+        approx = env.lower() in ("1", "true", "yes")
+    return dataclasses.replace(base_dac_config(), snake_approx=approx)
 
 
 def _dit_quant_mode() -> str:
@@ -49,14 +63,16 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
                 dtype=torch.bfloat16, allow_random: bool = False) -> EchoModels:
     """Load (once) and cache the model bundle (reference:
     handler.py:323-423).  A later call that asks for another directory,
-    dtype, quant mode or device raises rather than serve the cached bundle;
-    call clear_models() to swap.  Raises without CUDA unless device='cpu'."""
+    dtype, quant mode, device or decoder snake raises rather than serve
+    the cached bundle; call clear_models() to swap.  Raises without CUDA
+    unless device='cpu'."""
     global _MODELS, _MODELS_KEY
     device = resolve_device(device)
     use_random = not (model_dir and os.path.isdir(model_dir))
     quant_mode = _dit_quant_mode()
+    dac_cfg = _serving_dac_config(device)
     key = (None if use_random else model_dir, str(dtype), use_random,
-           quant_mode, str(device))
+           quant_mode, str(device), dac_cfg.snake_approx)
     with _CACHE_LOCK:
         if _MODELS is not None:
             if key != _MODELS_KEY:
@@ -66,10 +82,11 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
             return _MODELS
         t0 = time.time()
         if not use_random:
-            models = load_models_from_dir(model_dir, device, dtype)
+            models = load_models_from_dir(model_dir, device, dtype,
+                                          dac_cfg=dac_cfg)
         elif allow_random:
             log.warning("no model directory: using RANDOM weights (dev mode)")
-            models = random_models(device, dtype)
+            models = random_models(device, dtype, dac_cfg=dac_cfg)
         else:
             raise FileNotFoundError(
                 f"model dir not found: {model_dir!r}; pass a directory with "
@@ -82,6 +99,10 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
         _MODELS, _MODELS_KEY = models, key
         log.info("models ready in %.1fs", time.time() - t0)
         return _MODELS
+
+
+def models_loaded() -> bool:
+    return _MODELS is not None
 
 
 def served_quant_mode() -> str:
@@ -100,3 +121,8 @@ def clear_models() -> None:
     with _CACHE_LOCK:
         _MODELS = None
         _MODELS_KEY = None
+    # voice latents are valid only for the encoder that made them, and a
+    # freed bundle's id() may be reused by the next one: the voice cache
+    # must not outlive the bundle
+    from . import handler as _handler
+    _handler.clear_voice_cache()

@@ -1,16 +1,41 @@
-"""Streaming block schedules.
+"""Sampler presets, the shape buckets that set outputs, and the streaming
+block schedules.
 
-Counterpart of the streaming part of echo_tts_tpu/serve/presets.py
-(:29-90), copied as it is: the block sizes a stream may use, the cap on
-its block count, the stream-total buckets and the growing schedule.  The
-sampler presets, the text/speaker/sequence buckets, the warm-up manifest
-and the batch buckets wait for the serving slice.
+Counterpart of echo_tts_tpu/serve/presets.py.  Presets mirror the
+reference's sampler_presets.json (6 presets varying CFG scales,
+truncation and temporal rescale; reference: sampler_presets.json:1-62,
+loaded at gradio_app.py:431-451); a copy of the JSON ships with this
+package.  The buckets kept are those that change what a request returns
+or that batching needs: the sequence bucket of `auto_sequence_length` (the
+audio's length), the speaker bucket (the padded speaker width that the
+voice cache stores and a batch stacks at, batcher.py:149-154) and the
+text bucket.  The streaming part (block sizes, block-count cap,
+stream-total buckets, growing schedule) is copied as it is.
+
+Left out, because they only bound the number of compiled XLA programs and
+an eager PyTorch program compiles nothing per shape: `batch_size_buckets`
+/ `pick_batch_bucket` (the server runs each group at its own size),
+`warmup_manifest` and `_later_cover_schedule` (the port's warm-up builds
+the kernels instead, serve/handler.warmup_compile).  The blockwise
+sampler leaves out the JAX package's `total_len_bucket` for the same
+reason.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import json
+import os
+from typing import Dict, Optional
 
 from ..pipeline.text import find_min_bucket_gte
+
+PRESETS_PATH = os.path.join(os.path.dirname(__file__),
+                            "sampler_presets.json")
+
+TEXT_BUCKETS = "768"
+SPEAKER_BUCKETS = "640, 2816, 6400"
+# Generation-length buckets for auto_sequence_length (latents; 640 ~ 29.7 s)
+SEQUENCE_BUCKETS = "160, 320, 480, 640"
 
 # Streaming block sizes (latents) and block-count cap.  40 exists for
 # time-to-first-audio (1.86 s of audio); larger blocks amortize the
@@ -66,3 +91,48 @@ def growing_schedule(total_latents: int) -> list:
             f"(max {max_total} latents per growing-schedule stream); "
             "split the text and resume with continuation_latent")
     return out
+
+
+# Host-side speech-rate heuristic shared with the chunker
+# (reference: handler.py:109 target_chars = duration * 12)
+CHARS_PER_SECOND = 12.0
+LATENTS_PER_SECOND = 44100.0 / 2048.0
+
+
+def pick_sequence_bucket(text: str, max_sequence_length: int,
+                         margin: float = 1.5,
+                         buckets: str = SEQUENCE_BUCKETS) -> int:
+    """Latency feature (off by default in the handler): bound the
+    generation length by the text's estimated speech duration instead of
+    always generating the full sequence and cropping.  margin=1.5 leaves
+    headroom for slow delivery; the end-of-speech crop still trims the
+    tail."""
+    est_seconds = max(len(text), 1) / CHARS_PER_SECOND
+    est_latents = int(est_seconds * LATENTS_PER_SECOND * margin)
+    bucket = find_min_bucket_gte(buckets, est_latents)
+    return min(bucket, max_sequence_length)
+
+
+@functools.lru_cache(maxsize=1)
+def load_presets(path: Optional[str] = None) -> Dict[str, Dict]:
+    with open(path or PRESETS_PATH) as f:
+        return json.load(f)
+
+
+def get_preset(name: str) -> Dict:
+    presets = load_presets()
+    if name not in presets:
+        raise KeyError(
+            f"unknown sampler preset {name!r}; available: "
+            f"{sorted(presets)}")
+    return dict(presets[name])
+
+
+def pick_text_bucket(actual_length: int,
+                     buckets: str = TEXT_BUCKETS) -> int:
+    return find_min_bucket_gte(buckets, actual_length)
+
+
+def pick_speaker_bucket(actual_latents: int,
+                        buckets: str = SPEAKER_BUCKETS) -> int:
+    return find_min_bucket_gte(buckets, actual_latents)

@@ -1,6 +1,6 @@
 """Where the main path's device time goes, on one CUDA card.
 
-    python -m echo_tts_torch.tools.profile_main_path [--stream]
+    python -m echo_tts_torch.tools.profile_main_path [--stream | --batch]
 
 Builds the seeded random models at full width (pipeline.random_models),
 answers one voice-cloned request (tests/data/voice.wav as the speaker,
@@ -26,6 +26,12 @@ streaming request (e): stream_synthesize on growing_schedule(640) with
 that voice, pre-encoded so that the stage is the prefill, the 40-latent
 first block's sampler and its first decode_zq_block, up to the chunk's
 audio on the host.  The same REPS unprofiled runs, then one profiled.
+
+With --batch it profiles instead chip_smoke.py's micro-batched request
+(h): serve.batcher.run_batch over eight requests (four with the voice's
+latent, padded to its speaker bucket, four without) with SAMPLER_DEFAULTS,
+as one stage (the B = 8 sampler pass, the decode in slices of 4, the
+crops) and its sampler pass alone.
 """
 from __future__ import annotations
 
@@ -47,7 +53,9 @@ from ..config import SAMPLER_DEFAULTS, MAX_TEXT_LENGTH
 from ..ops.quant import quantize_dit
 from ..pipeline import audio_io, pipeline as pl
 from ..pipeline.text import get_text_input_ids_and_mask
-from ..serve.presets import growing_schedule
+from ..sampler.euler import sample_euler_cfg_independent_guidances
+from ..serve import batcher
+from ..serve.presets import growing_schedule, pick_speaker_bucket
 from ..serve.streaming import stream_synthesize
 
 VOICE = Path(__file__).resolve().parents[2] / "tests" / "data" / "voice.wav"
@@ -144,6 +152,44 @@ def stream_stages(models, voice) -> list:
     return [_profiled("stream_first_chunk", first_chunk, walls)]
 
 
+def batch_stages(models, voice) -> list:
+    """Request (h)'s pass at B = 8, whole and its sampler alone."""
+    n = voice.shape[-1] // models.dac_cfg.frame_length
+    lat, mask = pl.get_speaker_latent_and_mask(
+        models, voice, max_speaker_latent_length=pick_speaker_bucket(n),
+        pad_to_max=True)
+    reqs = [batcher.BatchRequest(f"{TEXT} Request {i}.", seed=i,
+                                 speaker_latent=lat if i < 4 else None,
+                                 speaker_mask=mask if i < 4 else None)
+            for i in range(8)]
+
+    def batch():
+        return batcher.run_batch(models, reqs, SAMPLER_DEFAULTS)
+
+    params = dict(SAMPLER_DEFAULTS)
+    seq = params.pop("sequence_length")
+    ids, tmask = get_text_input_ids_and_mask([r.text for r in reqs],
+                                             MAX_TEXT_LENGTH)
+    spk = torch.zeros((8, lat.shape[1], lat.shape[2]))
+    smask = torch.zeros((8, lat.shape[1]), dtype=torch.bool)
+    spk[:4], smask[:4] = torch.from_numpy(lat), torch.from_numpy(mask)
+    inputs = [x.to(models.device) for x in (spk, smask, torch.from_numpy(ids),
+                                            torch.from_numpy(tmask))]
+    noise = batcher.draw_noise(range(8), seq, models.dit_cfg.latent_size,
+                               models.device)
+
+    def sampler():
+        return sample_euler_cfg_independent_guidances(
+            models.dit, *inputs, sequence_length=seq, dtype=models.dtype,
+            initial_noise=noise, **params)
+
+    batch()                                                 # warm-up
+    _, batch_ms = _timed(batch, REPS)
+    _, smp_ms = _timed(sampler, REPS)
+    return [_profiled("batch_b8", batch, batch_ms),
+            _profiled("sampler_b8", sampler, smp_ms)]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is False")
@@ -159,6 +205,10 @@ def main(argv) -> int:
     voice = audio_io.load_audio(str(VOICE))
     if "--stream" in argv:
         print(json.dumps({"card": card, "stages": stream_stages(models, voice)}),
+              flush=True)
+        return 0
+    if "--batch" in argv:
+        print(json.dumps({"card": card, "stages": batch_stages(models, voice)}),
               flush=True)
         return 0
     pl.sample_pipeline(models, sample_fn, TEXT, voice, 0)   # warm-up

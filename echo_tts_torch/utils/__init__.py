@@ -1,0 +1,3 @@
+from .profiling import StageTimer, trace
+
+__all__ = ["StageTimer", "trace"]

@@ -120,3 +120,35 @@ def test_random_init_is_seeded_and_folds_to_w():
     conv = a.decoder.model[0].conv
     w = conv.parametrizations["weight"].original1
     torch.testing.assert_close(conv.torch_weight(), w, rtol=1e-6, atol=1e-7)
+
+
+def test_decode_codes_and_length_plumbing(pair):
+    """decode_codes (the lookup, then decode_zq) and encode_/
+    decode_with_lengths against the JAX package: the same codes and
+    lengths, the same audio."""
+    jm, state = pair
+    model = _port(state)
+    rng = np.random.default_rng(3)
+    audio = np.tanh(rng.standard_normal((2, 6 * CFG.frame_length + 9, 1))
+                    ).astype(np.float32)
+    lens = np.array([6 * CFG.frame_length + 9, 3 * CFG.frame_length - 1],
+                    np.int32)
+    with torch.no_grad():
+        codes, ilens = tdac.encode_with_lengths(model, torch.from_numpy(audio),
+                                                torch.from_numpy(lens))
+        _, full = tdac.encode_with_lengths(model, torch.from_numpy(audio))
+        got, alens = tdac.decode_with_lengths(model, codes, ilens)
+        direct = tdac.decode_codes(model, codes)
+    jcodes, jlens = jdac.encode_with_lengths(jm.dac_params, jm.dac_cfg,
+                                             jnp.asarray(audio),
+                                             jnp.asarray(lens))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(ilens.numpy(), np.asarray(jlens))
+    assert ilens.dtype == torch.int32 and ilens.tolist() == [7, 3]
+    assert full.tolist() == [7, 7]
+    want, jalens = jdac.decode_with_lengths(jm.dac_params, jm.dac_cfg,
+                                            jcodes, jlens)
+    np.testing.assert_array_equal(alens.numpy(), np.asarray(jalens))
+    assert got.shape == (2, codes.shape[-1] * CFG.frame_length, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    torch.testing.assert_close(direct, got, rtol=0, atol=0)

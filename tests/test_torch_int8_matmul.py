@@ -141,3 +141,19 @@ def test_kernel_launch_needs_cuda():
         im._launch(x, torch.zeros((16, 32), dtype=torch.int8),
                    torch.ones((16,)), torch.bfloat16)
     assert im.int8_matmul_fused.launches == before
+
+
+def test_wrapper_raises_under_grad():
+    """Kernel C has no backward (the JAX package never differentiates
+    it): with grad on and x requiring grad the wrapper raises, on every
+    device, rather than hand back an output cut from the graph; under
+    inference mode the same call runs."""
+    x, w = _operands(41, 32, 64, 64)
+    w8, s = tq.quantize_weight_int8(torch.from_numpy(w.T.copy()))
+    xt = torch.from_numpy(x).requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        im.int8_matmul_fused(xt, w8, s)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tq.Int8Linear(w8, s)(xt)
+    with torch.inference_mode():
+        assert im.int8_matmul_fused(xt, w8, s).shape == (2, 16, 64)

@@ -6,7 +6,16 @@ Bound atol 2e-5 / rtol 1e-4 (fp32): the JAX suite's kernel-vs-twin bound
 (tests/test_pallas_attention.py:80).  The CUDA kernel itself is held
 against the same plain version on the card by chip_smoke.py (bf16,
 rel-RMS <= 1e-2).
+
+Gradients: the autograd Function that carries the CUDA kernel
+(`_KernelWithPlainGrad`) runs here with a stand-in forward that returns
+the plain output without a graph, as the kernel's launch does; its
+backward (a recompute through the plain version) is held against JAX's
+gradient through the Pallas kernel's custom VJP (`_fused_fn`, interpret
+mode) at the bound of tests/test_pallas_attention.py:119,249 (atol 3e-5,
+rtol 1e-3).
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -154,3 +163,81 @@ def test_kernel_launch_needs_cuda():
                    0.125, (kv["ks"], kv["vs"]))
     assert (ja.fused_joint_attention.launches,
             ja.fused_joint_attention.launches_kv8) == before
+
+
+def _graphless_plain(q, ks, vs, kt, vt, mask, cs, sm_scale):
+    """A stand-in for the kernel's launch: the plain output, no graph."""
+    with torch.no_grad():
+        return ja.joint_attention_plain(q, ks, vs, kt, vt, mask, cs,
+                                        sm_scale=sm_scale)
+
+
+@pytest.mark.parametrize("gb,b,s,t,h,flash", [
+    (3, 1, 40, 80, 1, False),   # a CFG batch over one KV row
+    (2, 1, 40, 80, 1, True),    # the flash forward (test_pallas_attention:249)
+    (6, 2, 16, 72, 2, False),   # G-broadcast over a KV batch of 2
+])
+def test_kernel_grad_matches_jax_custom_vjp(gb, b, s, t, h, flash):
+    dh = 128
+    q, ks, vs, kt, vt, mask, cs = _inputs(30 + gb, gb, b, s, t, h, dh, True)
+    ct = np.random.default_rng(31).standard_normal((gb, s, h, dh)).astype(
+        np.float32)
+    sm = dh ** -0.5
+    jmask = jnp.asarray(mask)
+
+    def loss(q, ks, vs, kt, vt, cs):
+        out = j_fused(q, ks, vs, kt, vt, jmask, cs, sm_scale=sm,
+                      interpret=True, flash=flash, block_q=16, block_kv=64)
+        return jnp.sum(out * jnp.asarray(ct))
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (q, ks, vs, kt, vt, cs)))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (q, ks, vs, kt, vt, cs)]
+    out = ja._KernelWithPlainGrad.apply(
+        _graphless_plain, sm, *leaves[:5], torch.from_numpy(mask), leaves[5])
+    assert out.grad_fn is not None
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(j_fused(*(jnp.asarray(a) for a in (q, ks, vs, kt, vt)),
+                           jmask, jnp.asarray(cs), sm_scale=sm,
+                           interpret=True)), **TOL)
+    out.backward(torch.from_numpy(ct))
+    for name, leaf, w in zip(("q", "k_self", "v_self", "k_static",
+                              "v_static", "col_scale"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=3e-5, rtol=1e-3, err_msg=name)
+
+
+def test_kernel_grad_only_where_asked():
+    """Inputs that do not require grad get none, and the Function's
+    gradients equal those of autograd through the plain version (the
+    wrapper's CPU path)."""
+    q, ks, vs, kt, vt, mask, cs = _inputs(33, 3, 1, 24, 40, 2, 64, True)
+    sm = 0.125
+    a = [torch.from_numpy(x) for x in (q, ks, vs, kt, vt)]
+    a[0].requires_grad_()
+    a[4].requires_grad_()
+    m, c = torch.from_numpy(mask), torch.from_numpy(cs)
+    out = ja._KernelWithPlainGrad.apply(_graphless_plain, sm, *a, m, c)
+    g_fn = torch.autograd.grad(out.sum(), [a[0], a[4]])
+    assert a[1].grad is None and a[3].grad is None
+    ref = ja.fused_joint_attention(*a, m, c, sm_scale=sm)
+    g_ref = torch.autograd.grad(ref.sum(), [a[0], a[4]])
+    for x, y in zip(g_fn, g_ref):
+        torch.testing.assert_close(x, y)
+
+
+def test_int8_kv_has_no_gradient():
+    """The int8 static K/V form raises under grad (the JAX package gives
+    it none), and runs without grad."""
+    q, ks, vs, kt, vt, mask, cs = _inputs(34, 2, 1, 16, 40, 1, 128, True)
+    kv = tq.quantize_kv_int8(torch.from_numpy(kt), torch.from_numpy(vt))
+    qt = torch.from_numpy(q).requires_grad_()
+    args = (qt, torch.from_numpy(ks), torch.from_numpy(vs), kv["k8"],
+            kv["v8"], torch.from_numpy(mask), torch.from_numpy(cs))
+    kw = dict(sm_scale=0.1, kv_scales=(kv["ks"], kv["vs"]))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ja.fused_joint_attention(*args, **kw)
+    with torch.no_grad():
+        assert ja.fused_joint_attention(*args, **kw).shape == q.shape

@@ -190,3 +190,16 @@ def test_entry_points_refuse_the_cpu_by_default(entry):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="(?i)cuda"):
         entry()
+
+
+def test_ae_reconstruct_matches_jax(pair):
+    """The debug round trip, ae_decode(ae_encode(audio)), against the JAX
+    package's."""
+    jm, port = pair
+    audio = _voice(9 * DAC_CFG.frame_length + 11)
+    got = tpl.ae_reconstruct(port, torch.from_numpy(audio))
+    want = jpl.ae_reconstruct(jm, jnp.asarray(audio))
+    assert got.shape == (1, 10 * DAC_CFG.frame_length) == tuple(want.shape)
+    # the codec's bound (tests/test_torch_dac.py): no sampler in the loop
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-4)

@@ -303,3 +303,29 @@ def test_history_launch_needs_cuda():
         rs._launch(x, w, False, hist)
     assert (rs.fused_res_stack.launches,
             rs.fused_res_stack.launches_stream) == before
+
+
+@pytest.mark.parametrize("which", ["x", "weights", "history"])
+def test_wrapper_raises_under_grad(which):
+    """Kernel B has no backward (the JAX package never differentiates
+    it): with grad on and an input that requires grad the wrapper raises,
+    on every device, rather than hand back an output cut from the graph;
+    without grad the same call runs."""
+    rng = np.random.default_rng(40)
+    c = 64
+    args = list(_stacked(_units(rng, c)))
+    x = torch.from_numpy(rng.standard_normal((1, 40, c)).astype(np.float32))
+    hist = [torch.zeros((1, 6 * d, c)) for d in rs.DILATIONS]
+    if which == "x":
+        x.requires_grad_()
+    elif which == "weights":
+        args[0].requires_grad_()
+    else:
+        hist[2].requires_grad_()
+    w = rs.ResStackWeights(*args)
+    kw = {"history": hist} if which == "history" else {}
+    with pytest.raises(RuntimeError, match="no gradient"):
+        rs.fused_res_stack(x, w, **kw)
+    with torch.no_grad():
+        out = rs.fused_res_stack(x, w, **kw)
+    assert (out[0] if kw else out).shape == x.shape
