@@ -32,14 +32,34 @@ Phases, in order; any failure exits non-zero and prints no result:
      micro-batched pass of eight concurrent submits to MicroBatchServer
      (KV batch 8), each request's noise bit for bit its single draw and its
      latents within rel-RMS 1e-2 of the request run alone, with the
-     batch's audio seconds per wall second;
+     batch's audio seconds per wall second; then training at the published
+     depth, seeded random weights: (i) train.loop.train at B = 2 on one
+     batch of the DataConfig shapes, t and eps fixed, three steps in each
+     remat mode (none, full, dots, dots_all, attn): kernel A's launches
+     per step exact (24, or 48 where the recompute re-runs the forward),
+     step ms, peak memory, each mode's gradients within rel-RMS 1e-2 of
+     "none"'s, the first-step losses within 1e-3, the loss lower at step 3;
+     kernel A's step against the plain version's and against the fp32
+     step at the bf16 step's timestep (within GRAD_FP32_RATIO of the
+     plain bf16 step's distance); one
+     step at blockwise=True (the latent encoder decayed without a
+     gradient); (j) write_shards on voice.wav (kernel B) feeding one step
+     through iter_batches; (k) two distill steps, 8 student steps of 5
+     teacher substeps, plain and quant-aware; (l) the student's bundle
+     saved and loaded through serve.models.load_models bit for bit, then a
+     handler job with few_step_sampler_params(8) in bf16 and under
+     ECHO_DIT_QUANT=int8; (m) one DemoSession.generate_audio, bit for bit
+     sample_pipeline's;
   4. each kernel against its plain PyTorch version on the card at the main
      path's shapes (and at ragged shapes shorter than one tile): joint
      attention with bf16 and with int8 static K/V, at the streaming
      shapes (latent-prefix columns, part or a whole tile masked) and over
      a KV batch of 2 and 8 (request h's, per-row speaker lengths masked),
+     at request k's teacher (GB = 6 over a KV batch of 2) and request m's
+     demo (GB = 3 and 1, 10 of 160 speaker columns valid) with T = 928,
      and under grad (the autograd Function's gradients against the plain
-     version's); the
+     version's; at request i's training shape too, and its forward under
+     grad alone); the
      residual stack, one-shot (at batch 1 and, as request h decodes, 4)
      and in its history form at streamed block shapes (new history
      checked too, zero history bit-equal to the one-shot kernel); and the W8A8 matmul (fp32 output within 1e-5 of the
@@ -124,6 +144,10 @@ LONG_TEXT = (
     "gathering night.")
 
 
+# torch.profiler traces a timing takes before it reads CUDA events instead
+TRACES = 5
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -133,13 +157,17 @@ def timed(fn, reps: int) -> dict:
     the device intervals (kernels, copies, sets) that `reps` calls queue,
     as torch.profiler reads them, over reps; `by_name`, that sum split by
     kernel name; `host_us`, the host's microseconds to issue one call (the
-    wall time of `reps` calls queued without a synchronise, over reps).
+    wall time of `reps` calls queued without a synchronise, over reps);
+    `timer`, what read `ms`.
 
     Every call queues the same device work, so a whole trace holds each
-    name's events a positive multiple of `reps` times; a trace that does
-    not (the profiler now and then drops some of a kernel's events, which
-    would read several times too fast) is taken again, at most three
-    times, and then raises."""
+    name's events a positive multiple of `reps` times.  The profiler now
+    and then drops some of a kernel's events, which would read several
+    times too fast, and a trace that does so is taken again.  After
+    TRACES such traces `ms` is read with CUDA events instead: the device's
+    elapsed time from before the first of `reps` calls to after the last,
+    over reps.  That time holds the gaps between the calls' work too, so
+    it is never below the profiler's sum; `by_name` is then empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -150,7 +178,7 @@ def timed(fn, reps: int) -> dict:
         fn()
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(TRACES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -162,14 +190,23 @@ def timed(fn, reps: int) -> dict:
                 span = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + span
                 count[ev.name] = count.get(ev.name, 0) + 1
-        short = {k: n for k, n in count.items() if n % reps}
+        short = {k[:60]: n for k, n in count.items() if n % reps}
         ms = sum(by_name.values())
         if ms > 0 and not short:
-            return dict(ms=ms, by_name=by_name, host_us=host_us)
+            return dict(ms=ms, by_name=by_name, host_us=host_us,
+                        timer="profiler")
         log(f"  (torch.profiler: device time {ms:.4f} ms, events not a "
             f"multiple of {reps} calls: {short}; tracing again)")
-    raise AssertionError(f"torch.profiler dropped device events in three "
-                         f"traces of {reps} calls")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    log(f"  (torch.profiler dropped device events in {TRACES} traces of "
+        f"{reps} calls: {ms:.4f} ms per call read with CUDA events)")
+    return dict(ms=ms, by_name={}, host_us=host_us, timer="cuda events")
 
 
 def host_us_paired(fn_a, fn_b, reps: int = 50, rounds: int = 41) -> dict:
@@ -228,6 +265,17 @@ def _read(counters) -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
+def kernel_counters() -> dict:
+    from echo_tts_torch.ops.int8_matmul import int8_matmul_fused
+    from echo_tts_torch.ops.joint_attention import fused_joint_attention
+    from echo_tts_torch.ops.res_stack import fused_res_stack
+    return {"joint_attention": (fused_joint_attention, "launches"),
+            "joint_attention_kv8": (fused_joint_attention, "launches_kv8"),
+            "int8_matmul": (int8_matmul_fused, "launches"),
+            "res_stack": (fused_res_stack, "launches"),
+            "res_stack_stream": (fused_res_stack, "launches_stream")}
+
+
 def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0) -> dict:
     return {"joint_attention": attn, "joint_attention_kv8": kv8,
             "int8_matmul": int8, "res_stack": res,
@@ -274,7 +322,7 @@ def phase_build():
 
 def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
                    n_lat: int = 0, lat_valid: int = 0, b: int = 1,
-                   spk_lens=None):
+                   spk_lens=None, under_grad: bool = False):
     """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
     quantize_kv_int8 of the same bf16 K/V) and passes their scales.  With
     n_lat, the static columns are [latent, text, speaker] as a streamed
@@ -282,7 +330,10 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     masked in every row (positions at or past the block's start).  b is
     the static K/V batch (a micro-batch of b requests; GB = G * b rows,
     G-major); spk_lens gives each KV row's valid speaker columns (the rest
-    masked, as a batch padded to one speaker bucket is)."""
+    masked, as a batch padded to one speaker bucket is).  under_grad:
+    q, k_self, v_self and the static K/V require grad, so that the
+    forward runs as training's does, through the autograd Function (its
+    kernel launch counted; no backward here)."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
     from echo_tts_torch.ops import quant
@@ -328,15 +379,25 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
         kt, vt = quant.dequantize_kv(qkv)
         kv_bytes = 1
     else:
+        if under_grad:
+            for x in (q, ks, vs, kt, vt):
+                x.requires_grad_()
         args = (q, ks, vs, kt, vt, mask, col_scale)
 
+    before = ja.fused_joint_attention.launches
     out = ja.fused_joint_attention(*args, **kw)
     torch.cuda.synchronize()
-    ref = ja.joint_attention_plain(*args, **kw)
-    max_abs, rel = errors(out, ref)
+    if under_grad and (out.grad_fn is None
+                       or ja.fused_joint_attention.launches != before + 1):
+        raise AssertionError("the forward under grad did not launch the "
+                             "kernel once inside the autograd Function")
+    with torch.no_grad():
+        ref = ja.joint_attention_plain(*args, **kw)
+    max_abs, rel = errors(out.detach(), ref)
     latent = f" latent {lat_valid}/{n_lat}" if n_lat else ""
     latent += f" B={b}" if b > 1 else ""
     latent += f" speaker columns {list(spk_lens)}" if spk_lens else ""
+    latent += " under grad" if under_grad else ""
     name = (f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} "
             f"T={t}{latent}")
     if rel > REL_RMS_BOUND:
@@ -366,6 +427,7 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}"
                + (" int8 K/V" if kv8 else "") + latent, max_abs_err=max_abs,
                rel_rms=rel, ms=kernel_ms, host_us=kernel["host_us"],
+               timer=kernel["timer"],
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                bound_by=b_by, bound_share=b_ms / kernel_ms)
     log(f"  attention {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
@@ -376,7 +438,8 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     return res
 
 
-def attention_backward_case(gb: int, s: int, t: int, seed: int):
+def attention_backward_case(gb: int, s: int, t: int, seed: int, b: int = 1,
+                            spk_lens=None, host_pairs: bool = True):
     """Kernel A under grad: the forward through the autograd Function that
     carries the kernel (its output the kernel's, its launch counted), the
     gradients of q, k_self, v_self and the static K/V from its backward,
@@ -386,11 +449,13 @@ def attention_backward_case(gb: int, s: int, t: int, seed: int):
     (yardstick).  Also the host microseconds of one call without grad, in
     turns: the wrapper (which launches the kernel directly), and the same
     launch through the Function, which a wrapper that always took it would
-    pay."""
+    pay.  With b > 1 (training's KV batch, GB = b, no CFG branches) the
+    rows mask their text past 96 bytes and their speaker columns past
+    spk_lens, and host_pairs=False skips the host count."""
     import torch
     import torch.nn.functional as F
     from echo_tts_torch.ops import joint_attention as ja
-    h, dh, b = 16, 128, 1
+    h, dh = 16, 128
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -401,8 +466,13 @@ def attention_backward_case(gb: int, s: int, t: int, seed: int):
             rnd(b, t, h, dh), rnd(b, t, h, dh)]
     ct = rnd(gb, s, h, dh)
     mask = torch.ones((gb, t), dtype=torch.bool, device=dev)
-    mask[1, :768] = False                       # uncond text
-    mask[2, 768:] = False                       # uncond speaker
+    if b == 1:
+        mask[1, :768] = False                   # uncond text
+        mask[2, 768:] = False                   # uncond speaker
+    else:
+        mask[:, 96:768] = False                 # text padding
+        for i, n in enumerate(spk_lens):
+            mask[i, 768 + n:] = False           # speaker padding
     col_scale = torch.ones((t,), device=dev)
     col_scale[768:] = 1.5
     sm = dh ** -0.5
@@ -443,10 +513,10 @@ def attention_backward_case(gb: int, s: int, t: int, seed: int):
     # yardstick: SDPA forward + backward on [self | static], as in
     # attention_case
     kb = torch.cat([base[1], (base[3] * col_scale[None, :, None, None]
-                              .to(torch.bfloat16)).expand(gb, t, h, dh)],
+                              .to(torch.bfloat16)).repeat(gb // b, 1, 1, 1)],
                    1).transpose(1, 2).contiguous().requires_grad_()
     vb = torch.cat([base[2], (base[4] * col_scale[None, :, None, None]
-                              .to(torch.bfloat16)).expand(gb, t, h, dh)],
+                              .to(torch.bfloat16)).repeat(gb // b, 1, 1, 1)],
                    1).transpose(1, 2).contiguous().requires_grad_()
     qb = base[0].transpose(1, 2).contiguous().requires_grad_()
     am = torch.cat([torch.zeros((gb, s), device=dev),
@@ -466,15 +536,20 @@ def attention_backward_case(gb: int, s: int, t: int, seed: int):
     # what the autograd Function would add to a call without grad: the
     # launch alone (the wrapper's path without grad) against the launch
     # through the Function (its path under grad), paired in turns
-    with torch.no_grad():
-        args = (*base, mask, col_scale)
-        host = host_us_paired(
-            lambda: ja._launch(*args, sm),
-            lambda: ja._KernelWithPlainGrad.apply(ja._launch, sm, *args))
-    res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh} forward+backward",
+    host = dict(a_us=None, b_us=None, diff_us=None, diff_q_us=[None, None])
+    if host_pairs:
+        with torch.no_grad():
+            args = (*base, mask, col_scale)
+            host = host_us_paired(
+                lambda: ja._launch(*args, sm),
+                lambda: ja._KernelWithPlainGrad.apply(ja._launch, sm, *args))
+    res = dict(shape=f"GB={gb} S={s} T={t} H={h} Dh={dh}"
+               + (f" B={b} speaker columns {list(spk_lens)}" if b > 1 else "")
+               + " forward+backward",
                max_abs_err=max(a for a, _ in errs.values()), rel_rms=worst,
                rel_rms_by_tensor={k: v[1] for k, v in errs.items()},
-               ms=kernel["ms"], host_us=kernel["host_us"], plain_ms=plain_ms,
+               ms=kernel["ms"], host_us=kernel["host_us"],
+               timer=kernel["timer"], plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                bound_share=b_ms / kernel["ms"],
                host_us_no_grad_launch=host["a_us"],
@@ -487,10 +562,12 @@ def attention_backward_case(gb: int, s: int, t: int, seed: int):
         f"{kernel['ms']:.4f} host_us {kernel['host_us']:.1f} plain_ms "
         f"{plain_ms:.4f} library_ms (SDPA fwd+bwd) {library_ms:.4f} bound_ms "
         f"{b_ms:.4f} ({b_by}), {100 * b_ms / kernel['ms']:.1f} % of the "
-        f"bound; host_us per call without grad: launch {host['a_us']:.1f}, "
-        f"through the autograd Function {host['b_us']:.1f}, paired "
-        f"difference {host['diff_us']:.1f} (quartiles "
-        f"{host['diff_q_us'][0]:.1f}, {host['diff_q_us'][1]:.1f})")
+        f"bound" + ("" if not host_pairs else
+                    f"; host_us per call without grad: launch "
+                    f"{host['a_us']:.1f}, through the autograd Function "
+                    f"{host['b_us']:.1f}, paired difference "
+                    f"{host['diff_us']:.1f} (quartiles "
+                    f"{host['diff_q_us'][0]:.1f}, {host['diff_q_us'][1]:.1f})"))
     return res
 
 
@@ -568,7 +645,8 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int,
     res = dict(shape=f"C={c} L={length} snake={'sin2_poly' if approx else 'exact'}"
                + (f" batch {batch}" if batch > 1 else ""),
                max_abs_err=max_abs, rel_rms=max(rel, rel_head), ms=kernel_ms,
-               host_us=kernel["host_us"], plain_ms=plain_ms, library_ms=None,
+               host_us=kernel["host_us"], timer=kernel["timer"],
+               plain_ms=plain_ms, library_ms=None,
                unrolled_ms=unrolled_ms, bound_ms=b_ms, bound_by=b_by,
                bound_share=b_ms / kernel_ms)
     log(f"  res_stack {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
@@ -637,7 +715,8 @@ def res_stack_history_case(c: int, length: int, approx: bool, seed: int):
                       " history"),
                max_abs_err=max_abs, rel_rms=max(rel, rel_head, rel_hist),
                rel_rms_history=rel_hist, zero_history_bit_equal=bit_equal,
-               ms=kernel["ms"], host_us=kernel["host_us"], plain_ms=plain_ms,
+               ms=kernel["ms"], host_us=kernel["host_us"],
+               timer=kernel["timer"], plain_ms=plain_ms,
                library_ms=None, unrolled_ms=unrolled_ms, bound_ms=b_ms,
                bound_by=b_by, bound_share=b_ms / kernel["ms"])
     log(f"  res_stack {res['shape']}: max_abs {max_abs:.3e} rel_rms {rel:.3e}"
@@ -676,8 +755,8 @@ def int8_matmul_case(m: int, k: int, n: int, seed: int):
     kernel = timed(lambda: im.int8_matmul_fused(x, w8, ws), 50)
     kernel_ms = kernel["ms"]
     # kernel C's time is its two launches together; the pre-pass apart
-    prepass_ms = sum(v for k, v in kernel["by_name"].items()
-                     if "quantize_rows" in k)
+    prepass_ms = (sum(v for k, v in kernel["by_name"].items()
+                      if "quantize_rows" in k) if kernel["by_name"] else None)
     plain_ms = timed(lambda: im.int8_matmul_plain(x, w8, ws), 5)["ms"]
     # yardsticks only, never called by the port: the library's int8 product
     # alone on pre-quantized operands, and the bf16 product it replaces
@@ -690,16 +769,29 @@ def int8_matmul_case(m: int, k: int, n: int, seed: int):
     res = dict(shape=f"M={m} K={k} N={n}", max_abs_err=max_abs32,
                max_abs_err_bf16=max_abs, rel_rms=rel, ms=kernel_ms,
                prepass_ms=prepass_ms, host_us=kernel["host_us"],
+               timer=kernel["timer"],
                plain_ms=plain_ms, library_ms=library_ms,
                bf16_matmul_ms=bf16_ms, bound_ms=b_ms, bound_by=b_by)
     log(f"  {name}: fp32 max_abs {max_abs32:.3e} (bound {INT8_FP32_BOUND}) "
         f"bf16 max_abs {max_abs:.3e} rel_rms {rel:.3e} (bound "
         f"{REL_RMS_BOUND}); W8A8 vs bf16 matmul rel_rms {rel_bf16:.3e}; "
-        f"kernel_ms {kernel_ms:.4f} (pre-pass {prepass_ms:.4f}) host_us "
+        f"kernel_ms {kernel_ms:.4f} (pre-pass "
+        f"{'not measured' if prepass_ms is None else f'{prepass_ms:.4f}'}) host_us "
         f"{kernel['host_us']:.1f} plain_ms {plain_ms:.4f} _int_mm_ms "
         f"{library_ms:.4f} bf16_matmul_ms {bf16_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by})")
     return res
+
+
+def training_cases():
+    """Kernel A at request (i)'s shapes: B = 2 (GB = 2, no CFG branches),
+    S = 640, T = 768 text + 160 speaker columns, the second row's speaker
+    valid for 75 (300 latents): the forward under grad, and the forward
+    with the plain recompute's backward."""
+    return (attention_case(2, 640, 928, seed=120, b=2, spk_lens=[160, 75],
+                           under_grad=True),
+            attention_backward_case(2, 640, 928, seed=121, b=2,
+                                    spk_lens=[160, 75], host_pairs=False))
 
 
 def phase_kernels():
@@ -735,6 +827,14 @@ def phase_kernels():
                  attention_case(24, 640, 778, seed=101, b=8, spk_lens=spk_lens),
                  attention_case(8, 640, 778, seed=102, b=8, spk_lens=spk_lens)]
     att += att_batch
+    # request (k)'s teacher (GB = 6: three CFG branches over the KV batch
+    # of 2, the speakers padded to 160 patches, 160 and 75 valid) and
+    # request (m)'s demo (GB = 3 on CFG steps, 1 else; the speaker padded
+    # to the 640-latent bucket with 10 of its 160 patches valid, so that
+    # the last static tiles are masked in every row), at T = 768 + 160
+    att += [attention_case(6, 640, 928, seed=122, b=2, spk_lens=[160, 75]),
+            attention_case(3, 640, 928, seed=123, spk_lens=[10]),
+            attention_case(1, 640, 928, seed=124, spk_lens=[10])]
     # int8 static K/V at request (d)'s shapes (GB=3 and 1, T=778) and at
     # the longest static K/V; and over a KV batch of 8
     att8 = [attention_case(gb, 640, t, seed=30 + i, kv8=True)
@@ -786,9 +886,6 @@ def phase_main_path(card: str):
     from echo_tts_torch import SAMPLER_DEFAULTS
     from echo_tts_torch.models import dit as tdit
     from echo_tts_torch.ops import quant
-    from echo_tts_torch.ops.int8_matmul import int8_matmul_fused
-    from echo_tts_torch.ops.joint_attention import fused_joint_attention
-    from echo_tts_torch.ops.res_stack import fused_res_stack
     from echo_tts_torch.pipeline import audio_io, pipeline as pl
     from echo_tts_torch.pipeline.text import chunk_text, get_text_input_ids_and_mask
     from echo_tts_torch.sampler.euler import make_cfg_branch_masks
@@ -873,11 +970,7 @@ def phase_main_path(card: str):
              qmodels, timed_sample_fn_q, TEXT, voice, 1), 1, n_voice_chunks,
          True),
     ]
-    counters = {"joint_attention": (fused_joint_attention, "launches"),
-                "joint_attention_kv8": (fused_joint_attention, "launches_kv8"),
-                "int8_matmul": (int8_matmul_fused, "launches"),
-                "res_stack": (fused_res_stack, "launches"),
-                "res_stack_stream": (fused_res_stack, "launches_stream")}
+    counters = kernel_counters()
     launches = dict.fromkeys(counters, 0)
     request_stats = {}
     try:
@@ -1474,10 +1567,505 @@ def request_batch(models, counters, card: str) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 3, continued: training, data, distillation, the bundle, the demo
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4           # make_optimizer's default
+# Request (i)'s gradients with kernel A are held against the fp32 step
+# (plain attention) at the timestep the bf16 step sees, t rounded to bf16
+# (echo_tts_torch/tools/train_checks.py says why): no farther from it
+# than GRAD_FP32_RATIO times the plain bf16 step is.  Kernel A's step and
+# the plain one differ by their own bf16 roundings, which the 24 layers
+# carry into the gradients, so the two bf16 steps sit about as far from
+# each other as each from the fp32 one (1.5-1.7e-2 apart, 1.9-2.1e-2 from
+# it, so 1e-2 between them would sit below bf16's own noise); each kernel
+# call is held to 1e-2 in phase 4.  The ratio read 0.9952-1.0014 over
+# seeds 0-3 at 24 layers and seed 0 at 1, 4 and 12 (train_checks.py on an
+# H100 80GB HBM3 at 700 W); 1.02 lets through a kernel error of at most a
+# fifth of the bf16 step's own, added independently.
+GRAD_FP32_RATIO = 1.02
+
+
+class StepTimes:
+    """Wraps a module's step-function factory (make_train_step,
+    make_distill_step) so that each step it makes is timed on the host
+    clock between synchronises; `ms` collects the steps' times."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.make = getattr(module, name)
+        self.ms = []
+
+    def __enter__(self):
+        import torch
+
+        def make(*a, **k):
+            step = self.make(*a, **k)
+
+            def timed_step(*sa, **sk):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed_step
+
+        setattr(self.module, self.name, make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.make)
+        return False
+
+
+def _free():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def request_train(counters, card: str) -> dict:
+    """Request (i): `train` on the published 24-layer DiT (blockwise=False,
+    as the JAX package trains it; seeded random bf16 weights) at B = 2 on
+    one batch of the DataConfig shapes, t and eps fixed across steps:
+    three steps in each remat mode, each from the same initial weights.
+    Per mode: one step's gradients (flow_matching_loss backward, as the
+    first update sees them) against "none"'s (rel-RMS 1e-2), kernel A's
+    launches per step (exact: L under "none", "attn", "dots_all"; 2 L
+    under "full" and "dots", whose recompute re-runs the forward), the
+    step ms (median of three, host clock between synchronises), the peak
+    memory (torch.cuda.max_memory_allocated, reset before the run, and
+    what was resident then); the loss finite and lower at step 3 than at
+    step 1, and the first-step losses of all modes within relative 1e-3.
+    Then the same step with joint_attention_plain in place of the kernel,
+    in bf16 and in fp32 at the bf16 step's timestep: kernel A's step no
+    farther from the fp32 one than GRAD_FP32_RATIO times the plain bf16
+    step; and one train step at blockwise=True, whose
+    latent encoder the loss does not reach: its gradients stay allocated
+    at zero and AdamW holds state for them (the decay optax applies)."""
+    import itertools
+
+    import torch
+    from echo_tts_torch.config import base_dit_config
+    from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.tools.train_checks import (grad_rel_rms,
+                                                   precision_gaps,
+                                                   step_grads, train_draws)
+    from echo_tts_torch.train import loop as tloop
+
+    t0 = time.perf_counter()
+    model0 = tdit.init_dit(base_dit_config(blockwise=False), seed=0)
+    cfg = model0.cfg
+    n_layers = cfg.num_layers
+    batch, t, eps = train_draws(cfg, seed=0)
+    log(f"  request i: DiT {sum(p.numel() for p in model0.parameters()) / 1e9:.3f}"
+        f" B params (blockwise=False), init {time.perf_counter() - t0:.1f} s")
+    per_step = {"none": n_layers, "full": 2 * n_layers, "dots": 2 * n_layers,
+                "dots_all": n_layers, "attn": n_layers}
+
+    total = dict.fromkeys(counters, 0)
+    modes, ref = {}, None
+    for mode in tdit.REMAT_MODES:
+        _reset(counters)
+        loss0, grads = step_grads(model0, batch, t, eps, remat=mode)
+        torch.cuda.synchronize()
+        got = _read(counters)
+        if got != _want(attn=per_step[mode]):
+            raise AssertionError(f"i {mode}: one step's launches {got}, want "
+                                 f"{_want(attn=per_step[mode])}")
+        if ref is None:
+            ref, rel = grads, 0.0
+        else:
+            rel = grad_rel_rms(grads, ref)
+            del grads
+            if rel > REL_RMS_BOUND:
+                raise AssertionError(f"i {mode}: gradients rel-RMS {rel:.3e} "
+                                     f"from none's > {REL_RMS_BOUND}")
+        _free()
+        losses = []
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        with StepTimes(tloop, "make_train_step") as times:
+            state = tloop.train(model0, itertools.repeat(batch), num_steps=3,
+                                lr=TRAIN_LR, fixed_noise=(t, eps), remat=mode,
+                                on_step=lambda i, v: losses.append(v))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = _read(counters)
+        for k, v in got.items():
+            total[k] += v
+        if got != _want(attn=3 * per_step[mode]):
+            raise AssertionError(f"i {mode}: launches {got} over three steps, "
+                                 f"want {_want(attn=3 * per_step[mode])}")
+        if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+            raise AssertionError(f"i {mode}: losses {losses}")
+        if abs(losses[0] - loss0) > 1e-3 * abs(loss0):
+            raise AssertionError(f"i {mode}: first step loss {losses[0]} "
+                                 f"against its gradient step's {loss0}")
+        modes[mode] = dict(step_ms=float(np.median(times.ms)),
+                           steps_ms=times.ms, losses=losses,
+                           peak_gib=peak / 2**30,
+                           resident_gib=resident / 2**30,
+                           launches_per_step=got["joint_attention"] // 3,
+                           grad_rel_rms_vs_none=rel)
+        log(f"  request i, remat {mode}: step ms {times.ms[0]:.1f} / "
+            f"{times.ms[1]:.1f} / {times.ms[2]:.1f} (median "
+            f"{modes[mode]['step_ms']:.1f}); losses "
+            f"{[round(v, 5) for v in losses]}; peak {peak / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB resident before); kernel A "
+            f"launches per step {got['joint_attention'] // 3}; gradients "
+            f"rel-RMS {rel:.3e} from none's ({card})")
+        del state
+        _free()
+    first = [m["losses"][0] for m in modes.values()]
+    if max(first) - min(first) > 1e-3 * abs(first[0]):
+        raise AssertionError(f"i: first-step losses {first} differ by more "
+                             "than relative 1e-3")
+
+    # the same step with the plain version in place of kernel A, in bf16
+    # and in fp32 (the model cast; the kernel takes bf16 only)
+    _reset(counters)
+    gaps = precision_gaps(model0, batch, t, eps, kernel_grads=ref,
+                          exact_t=False)
+    torch.cuda.synchronize()
+    if _read(counters) != _want():
+        raise AssertionError("i: the plain steps launched a kernel")
+    log(f"  request i: one step's gradients, rel-RMS: kernel A against "
+        f"joint_attention_plain, both bf16, {gaps['kernel_vs_plain']:.3e}; "
+        f"against the fp32 step at the bf16 step's t: kernel A "
+        f"{gaps['kernel_vs_fp32']:.3e}, plain bf16 {gaps['plain_vs_fp32']:.3e}"
+        f", ratio {gaps['ratio']:.4f} (bound {GRAD_FP32_RATIO}) ({card})")
+    if gaps["ratio"] > GRAD_FP32_RATIO:
+        raise AssertionError(f"i: kernel A's step gradients rel-RMS "
+                             f"{gaps['kernel_vs_fp32']:.3e} from the fp32 "
+                             f"step's, the plain bf16 step's "
+                             f"{gaps['plain_vs_fp32']:.3e}")
+    del ref, model0
+    _free()
+
+    # blockwise=True: the latent encoder is trained but never reached
+    model_bw = tdit.init_dit(base_dit_config(blockwise=True), seed=0)
+    _reset(counters)
+    state = tloop.train(model_bw, itertools.repeat(batch), num_steps=1,
+                        lr=TRAIN_LR, fixed_noise=(t, eps))
+    torch.cuda.synchronize()
+    got = _read(counters)
+    for k, v in got.items():
+        total[k] += v
+    if got != _want(attn=n_layers):
+        raise AssertionError(f"i blockwise: launches {got}")
+    unreached = list(state.model.latent_encoder.parameters())
+    if not all(p.grad is not None and not bool(p.grad.any())
+               and "exp_avg" in state.optimizer.state[p] for p in unreached):
+        raise AssertionError("i blockwise: the latent encoder's gradients "
+                             "are not zero, or AdamW holds no state for them")
+    log(f"  request i, blockwise=True: one step, {len(unreached)} latent-"
+        f"encoder tensors ({sum(p.numel() for p in unreached) / 1e6:.1f} M "
+        f"params) with zero gradients under AdamW's decay; launches {got}")
+    del state, model_bw
+    _free()
+    return dict(modes=modes, grad_rel_rms=gaps, launches=total)
+
+
+def request_data(models, counters) -> tuple:
+    """Request (j): write_shards on tests/data/voice.wav (one utterance:
+    one encode, kernel B 3 calls), load_shard, then iter_batches (batch 1)
+    feeds one train step (kernel A 24 under "attn").  Returns (launch
+    counts, the step's loss)."""
+    import tempfile
+
+    import torch
+    from echo_tts_torch.pipeline import audio_io
+    from echo_tts_torch.train import data as tdata
+    from echo_tts_torch.train import loop as tloop
+
+    voice = audio_io.load_audio(VOICE)
+    n_lat = voice.shape[1] // models.dac_cfg.frame_length
+    total = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory() as work:
+        _reset(counters)
+        t0 = time.perf_counter()
+        shards = tdata.write_shards(models, [(voice, TEXT)], work)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        got = _read(counters)
+        if got != _want(res=3):
+            raise AssertionError(f"j: write_shards launches {got}")
+        total = dict(got)
+        utts = tdata.load_shard(shards[0])
+        if len(utts) != 1 or utts[0][0].shape != (n_lat, 80):
+            raise AssertionError(f"j: shard {[u[0].shape for u in utts]}")
+        batch = next(tdata.iter_batches(shards, models, batch_size=1))
+    ps = models.dit_cfg.speaker_patch_size
+    k = min(n_lat // 2, 640) // ps * ps        # the speaker clip, then the target
+    if (batch["latents"].shape != (1, 640, 80)
+            or int(batch["latent_mask"].sum()) != min(n_lat - k, 640)
+            or int(batch["speaker_mask"].sum()) != k):
+        raise AssertionError(f"j: batch {[(n, v.shape) for n, v in batch.items()]}")
+    _reset(counters)
+    losses = []
+    state = tloop.train(models.dit, [batch], num_steps=1,
+                        on_step=lambda i, v: losses.append(v))
+    torch.cuda.synchronize()
+    got = _read(counters)
+    for kk, v in got.items():
+        total[kk] += v
+    if got != _want(attn=models.dit_cfg.num_layers) or not np.isfinite(losses).all():
+        raise AssertionError(f"j: train step launches {got}, loss {losses}")
+    log(f"  request j: write_shards on voice.wav: {n_lat} latents, encode "
+        f"{enc_s * 1e3:.1f} ms, kernel B 3 calls; iter_batches -> one train "
+        f"step, loss {losses[0]:.5f}, kernel A {got['joint_attention']}")
+    del state
+    _free()
+    return total, losses[0]
+
+
+def request_distill(models, batch, counters, card: str) -> tuple:
+    """Request (k): two `distill` steps from the published 24-layer teacher
+    (models.dit, seeded random bf16 weights) into a student of the same
+    size, num_student_steps=8, substeps=5, plain and then quant-aware.
+    Per step kernel A launches 5 x 24 times for the teacher (no grad, 3B
+    rows) and 24 for the student (under grad); no kernel C (QAT runs
+    through qat_dot).  Prints the losses, the step ms, the peak memory.
+    Returns (launch counts, the quant-aware student, results)."""
+    import itertools
+
+    import torch
+    from echo_tts_torch.train import distill as tdistill
+
+    n_layers = models.dit_cfg.num_layers
+    per_step = (5 + 1) * n_layers
+    total = dict.fromkeys(counters, 0)
+    results = {}
+    for quant_aware in (False, True):
+        student = None                      # the plain one goes first
+        name = "quant-aware" if quant_aware else "plain"
+        losses = []
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        with StepTimes(tdistill, "make_distill_step") as times:
+            state = tdistill.distill(
+                models.dit, itertools.repeat(batch), num_steps=2,
+                num_student_steps=8, substeps=5, quant_aware=quant_aware,
+                on_step=lambda i, v: losses.append(v))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = _read(counters)
+        for k, v in got.items():
+            total[k] += v
+        if got != _want(attn=2 * per_step) or not np.isfinite(losses).all():
+            raise AssertionError(f"k {name}: launches {got}, want "
+                                 f"{_want(attn=2 * per_step)}; losses {losses}")
+        results[name] = dict(losses=losses, steps_ms=times.ms,
+                             peak_gib=peak / 2**30,
+                             resident_gib=resident / 2**30,
+                             launches_per_step=per_step)
+        log(f"  request k, {name}: losses {[round(v, 5) for v in losses]}; "
+            f"step ms {[round(v, 1) for v in times.ms]}; peak "
+            f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} resident before);"
+            f" kernel A per step {per_step} (teacher 5 x {n_layers} at GB = 6"
+            f" without grad, student {n_layers} under grad) ({card})")
+        student = state.model
+        del state
+        student.zero_grad(set_to_none=True)
+        student.requires_grad_(False)
+        _free()
+    return total, student, results
+
+
+def request_bundle(models, student, counters) -> tuple:
+    """Request (l): save_checkpoint of the quant-aware student's whole
+    bundle (student DiT, the codec, PCA), then
+    serve.models.load_models(model_dir=bundle): its parameters bit for bit
+    the saved ones; then one handler job with few_step_sampler_params(8)
+    through serve_checkpoint_smoke, in bf16 and under ECHO_DIT_QUANT=int8
+    (kernel C): audio finite and not silent, 8 x 24 kernel A launches (and
+    8 x 8 x 24 kernel C in the int8 job), one decode (kernel B 3 calls).
+    Prints the save and load seconds and the bundle's bytes."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from echo_tts_torch.serve import models as serve_models
+    from echo_tts_torch.tools.checkpoint import save_checkpoint
+    from echo_tts_torch.train.recipe import serve_checkpoint_smoke
+
+    bundle = dataclasses.replace(models, dit=student)
+    total = dict.fromkeys(counters, 0)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "bundle")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, bundle)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        serve_models.clear_models()
+        t0 = time.perf_counter()
+        loaded = serve_models.load_models(model_dir=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        for mod_a, mod_b in ((loaded.dit, student), (loaded.dac, models.dac)):
+            sa, sb = mod_a.state_dict(), mod_b.state_dict()
+            if list(sa) != list(sb) or not all(
+                    sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+                    for k in sa):
+                raise AssertionError("l: the bundle's parameters did not "
+                                     "round-trip bit for bit")
+        if not (torch.equal(loaded.pca["components"], models.pca["components"])
+                and loaded.pca["latent_scale"] == models.pca["latent_scale"]):
+            raise AssertionError("l: the PCA state did not round-trip")
+        del loaded
+        serve_models.clear_models()
+        _free()
+        log(f"  request l: save_checkpoint {save_s:.2f} s, "
+            f"{nbytes / 2**30:.3f} GiB in {sorted(os.listdir(path))}; "
+            f"serve.models.load_models {load_s:.2f} s; parameters bit-equal")
+        out.update(save_s=save_s, load_s=load_s, bytes=nbytes)
+        n_layers = models.dit_cfg.num_layers
+        for int8 in (False, True):
+            _reset(counters)
+            t0 = time.perf_counter()
+            smoke = serve_checkpoint_smoke(path, num_student_steps=8,
+                                           sequence_length=640, int8=int8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read(counters)
+            for k, v in got.items():
+                total[k] += v
+            want = _want(attn=8 * n_layers, res=3,
+                         int8=8 * 8 * n_layers if int8 else 0)
+            name = "int8" if int8 else "bf16"
+            if (not smoke["ok"] or smoke["audio_peak"] <= 1e-4
+                    or smoke["quant_reported"] != ("int8" if int8 else "none")
+                    or got != want):
+                raise AssertionError(f"l {name}: {smoke}; launches {got}, "
+                                     f"want {want}")
+            out[name] = dict(smoke, wall_s=wall)
+            log(f"  request l, handler job {name}: {wall:.2f} s (load "
+                f"included), {smoke['duration_seconds']} s audio, peak "
+                f"{smoke['audio_peak']:.3f}; launches {got}")
+    serve_models.clear_models()
+    return total, out
+
+
+def request_demo(models, counters) -> dict:
+    """Request (m): one DemoSession.generate_audio with voice.wav and no
+    gradio (the defaults: 40 steps, the text and speaker buckets), seed
+    11: kernel A 960, kernel B 3 per encoded speaker chunk and 3 for the
+    decode; its audio bit for bit sample_pipeline's with the same
+    arguments and seed."""
+    import functools
+    import tempfile
+
+    import torch
+    from echo_tts_torch.demo import app
+    from echo_tts_torch.pipeline import audio_io, pipeline as pl
+
+    recorded = []
+    run = app.sample_pipeline
+
+    def recording(*a, **k):
+        audio, text = run(*a, **k)
+        recorded.append(audio)
+        return audio, text
+
+    with tempfile.TemporaryDirectory() as work:
+        session = app.DemoSession(models, temp_dir=work)
+        app.sample_pipeline = recording
+        try:
+            _reset(counters)
+            t0 = time.perf_counter()
+            result = session.generate_audio(TEXT, VOICE, rng_seed=11)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            app.sample_pipeline = run
+        got = _read(counters)
+        written, _ = audio_io.read_wav(result.audio_path)
+    voice = audio_io.load_audio(VOICE)
+    spl = models.dac_cfg.frame_length
+    # the session's speaker bucket, as generate_audio picks it
+    pad_spk = app.find_min_bucket_gte(
+        app.DEFAULT_SPEAKER_BUCKETS,
+        voice.shape[1] // spl // models.dit_cfg.speaker_patch_size
+        * models.dit_cfg.speaker_patch_size)
+    n_chunks = math.ceil(min(voice.shape[1], pad_spk * spl) / (640 * spl))
+    if got != _want(attn=40 * models.dit_cfg.num_layers,
+                    res=3 * n_chunks + 3):
+        raise AssertionError(f"m: launches {got}")
+    fn = functools.partial(
+        pl.euler_sample_fn, num_steps=40, cfg_scale_text=3.0,
+        cfg_scale_speaker=8.0, cfg_min_t=0.5, cfg_max_t=1.0,
+        truncation_factor=1.0, rescale_k=None, rescale_sigma=3.0,
+        speaker_kv_scale=None, speaker_kv_min_t=None,
+        speaker_kv_max_layers=None, sequence_length=640)
+    want, _ = pl.sample_pipeline(models, fn, TEXT, voice, 11,
+                                 pad_to_max_text_length=768,
+                                 pad_to_max_speaker_latent_length=pad_spk)
+    if len(recorded) != 1 or not np.array_equal(recorded[0], want):
+        raise AssertionError("m: the session's audio is not sample_pipeline's "
+                             "bit for bit")
+    if written.shape[1] != want.shape[1] or not np.isfinite(want).all():
+        raise AssertionError(f"m: WAV {written.shape}, audio {want.shape}")
+    log(f"  request m: DemoSession.generate_audio {wall * 1e3:.1f} ms, "
+        f"{want.shape[1] / 44100:.2f} s audio; launches {got}; audio equals "
+        "sample_pipeline's bit for bit")
+    return got
+
+
+def phase_training(card: str) -> tuple:
+    """Requests (i)-(m) at the published width and depth; returns (their
+    launch counts, their results)."""
+    import torch
+    from echo_tts_torch.pipeline import pipeline as pl
+    from echo_tts_torch.serve import models as serve_models
+    from echo_tts_torch.tools.train_checks import train_batch
+
+    log("phase 3, training: train, data, distill, bundle, demo (full width "
+        "and depth, seeded random weights)")
+    serve_models.clear_models()
+    _free()
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    train = request_train(counters, card)
+    add(train["launches"])
+    models = pl.random_models()
+    got, data_loss = request_data(models, counters)
+    add(got)
+    got, student, distill = request_distill(
+        models, train_batch(models.dit_cfg, seed=62), counters, card)
+    add(got)
+    got, bundle = request_bundle(models, student, counters)
+    add(got)
+    del student
+    _free()
+    add(request_demo(models, counters))
+    log(f"  training requests' peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since the "
+        f"last reset")
+    return launches, dict(train=train["modes"],
+                          grad_rel_rms=train["grad_rel_rms"],
+                          data_loss=data_loss, distill=distill, bundle=bundle)
+
+
 def summary(case: dict, *extra) -> dict:
     """A case's shape, times, bound and errors, for the kernels line."""
-    keys = ("shape", "ms", "host_us", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_share", "max_abs_err", "rel_rms") + extra
+    keys = ("shape", "ms", "timer", "host_us", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_share", "max_abs_err",
+            "rel_rms") + extra
     return {k: case[k] for k in keys if k in case}
 
 
@@ -1488,8 +2076,8 @@ def kernel_entry(name, source, replaces, cases, main, launches, **extra):
                 launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in cases),
                 rel_rms=max(r["rel_rms"] for r in cases),
-                ms=main["ms"], kernel_ms=main["ms"], host_us=main["host_us"],
-                plain_ms=main["plain_ms"],
+                ms=main["ms"], kernel_ms=main["ms"], timer=main["timer"],
+                host_us=main["host_us"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shape=main["shape"], **extra)
 
@@ -1503,12 +2091,19 @@ def main(argv) -> int:
     # the main path runs before the kernels are timed: torch.profiler, which
     # times them, leaves tracing attached that slows the host-bound
     # sampler's wall time afterwards
-    launches = None if kernels_only else phase_main_path(card)
+    launches = trained = None
+    if not kernels_only:
+        launches = phase_main_path(card)
+        got, trained = phase_training(card)
+        for k, v in got.items():
+            launches[k] += v
     att, att8, att_bwd, rst, mm = phase_kernels()
+    att_train = training_cases()
     if kernels_only:
         # the kernels alone, to time two trees' kernels in one call
         print(json.dumps({"cases": dict(attention=att, attention_kv8=att8,
                                         attention_backward=[att_bwd],
+                                        attention_training=list(att_train),
                                         res_stack=rst, int8_matmul=mm)}),
               flush=True)
         return 0
@@ -1520,13 +2115,27 @@ def main(argv) -> int:
         kernel_entry(
             "joint_attention", "echo_tts_torch/csrc/joint_attention.cu",
             "echo_tts_tpu/ops/pallas/joint_attention.py:53 (_kernel) and "
-            ":105 (_flash_kernel)", att + att8, att[0],
+            ":105 (_flash_kernel)", att + att8 + [att_train[0]], att[0],
             launches["joint_attention"] + launches["joint_attention_kv8"],
             launches_bf16=launches["joint_attention"],
             launches_kv8=launches["joint_attention_kv8"],
             kv8=summary(att8[0]),
             # request h's CFG step (GB = 24 over a KV batch of 8)
             kv_batch8=summary(next(r for r in att if " B=8" in r["shape"])),
+            # request (i)'s shapes: the forward under grad, and the forward
+            # with the plain recompute's backward; launches per train step
+            # in each remat mode (its recompute re-runs the forward under
+            # "full" and "dots")
+            train_forward=summary(att_train[0]),
+            # request (k)'s teacher and request (m)'s demo on CFG steps
+            teacher=summary(next(r for r in att if r["shape"].startswith(
+                "GB=6 S=640 T=928"))),
+            demo=summary(next(r for r in att if r["shape"].startswith(
+                "GB=3 S=640 T=928"))),
+            train_backward=summary(att_train[1]),
+            launches_per_train_step={
+                mode: r["launches_per_step"]
+                for mode, r in trained["train"].items()},
             backward=summary(att_bwd) | {
                 k: att_bwd[k] for k in ("host_us_no_grad_launch",
                                         "host_us_no_grad_function",

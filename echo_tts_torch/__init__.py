@@ -14,8 +14,13 @@ Layer map (each module mirrors its namesake in echo_tts_tpu/):
              config), the micro-batching server and its batched pass, the
              model cache and its quant mode (ECHO_DIT_QUANT), presets and
              buckets; stream_synthesize and its block schedules
+  train/     the flow-matching step and loop (AdamW, EMA, remat modes),
+             latent shards and batches, few-step distillation (plain or
+             QAT) and its end-to-end recipe
   tools/     weight bridge from the JAX package's parameter trees; the
-             device-time profile of the main path
+             port's checkpoint bundles; the hub loader; the device-time
+             profile of the main path and of a train step
+  demo/      the demo's session and presets, gradio optional
   utils/     StageTimer and trace() (torch.profiler)
 
 Entry points default to device="cuda" and raise without a CUDA device;

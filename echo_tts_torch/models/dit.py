@@ -19,17 +19,25 @@ The blockwise latent prefix (`blockwise=True` configs, streaming):
 new patches once, with the patch encoder's K/V carried per layer, writing
 the new columns in place into preallocated buffers (JAX donates its
 buffers to `dynamic_update_slice` for the same effect).  The latent
-segment goes first in the static K/V: [latent, text, speaker].  The
-four-segment `dit_forward` of the JAX package serves only training and
-waits for that slice.
+segment goes first in the static K/V: [latent, text, speaker].
+
+`dit_forward` is the four-segment forward that training differentiates
+(self, latent prefix, text, speaker), with per-layer activation
+checkpointing (`remat`); `trainable_copy` gives the trainable modules
+that training updates, leaving the frozen model that serving loads as
+it is.
 """
 from __future__ import annotations
 
+import copy
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import EchoDiTConfig
 from ..device import resolve_device
@@ -429,32 +437,110 @@ def _joint_attention_static(p: JointAttention, x: torch.Tensor,
     return p.wo(out.reshape(gb, s, d) * torch.sigmoid(gate))
 
 
+def _dit_layer(blk: DiTBlock, h: torch.Tensor, cond: torch.Tensor,
+               freqs_q: torch.Tensor, static_mask: torch.Tensor,
+               col_scale: Optional[torch.Tensor], k_st: torch.Tensor,
+               v_st: torch.Tensor, kv_scales=None, *,
+               cfg: EchoDiTConfig) -> torch.Tensor:
+    """One DiT block: AdaLN, joint attention over [self | static K/V],
+    AdaLN, SwiGLU MLP, each behind its tanh gate (model.py:526-561)."""
+    h_norm, gate = low_rank_adaln(h, cond, blk.attention_adaln, cfg.norm_eps)
+    h = h + gate * _joint_attention_static(
+        blk.attention, h_norm, static_mask, col_scale, freqs_q, k_st, v_st,
+        num_heads=cfg.num_heads, eps=cfg.norm_eps, kv_scales=kv_scales)
+    h_norm, gate = low_rank_adaln(h, cond, blk.mlp_adaln, cfg.norm_eps)
+    return h + gate * _mlp(blk.mlp, h_norm)
+
+
+def _layer_col_scales(speaker_scale_by_layer: Optional[torch.Tensor],
+                      spk_cols: torch.Tensor) -> Optional[torch.Tensor]:
+    """Every layer's (T,) column scale in one (L, T) table: 1 off the
+    speaker columns, the layer's speaker-KV scale on them."""
+    if speaker_scale_by_layer is None:
+        return None
+    return 1.0 + ((speaker_scale_by_layer.float()[:, None] - 1.0)
+                  * spk_cols.float())
+
+
+def _embed(model: EchoDiT, x: torch.Tensor, t: torch.Tensor, start_pos: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(h, cond (GB, 1, 3M), freqs_q): the forward's input projection,
+    timestep conditioning and query RoPE table."""
+    cfg = model.cfg
+    s = x.shape[1]
+    freqs_q = freqs_tensor(cfg.head_dim, start_pos + s, x.device)[start_pos:]
+    cond = get_timestep_embedding(t, cfg.timestep_embed_size)
+    cond = model.cond_module(cond)[:, None]
+    return model.in_proj(x), cond, freqs_q
+
+
+def _out(model: EchoDiT, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, model.out_norm.weight, model.cfg.norm_eps)
+    return model.out_proj(h).float()
+
+
+# Activation checkpointing of the DiT layers (dit.py:859-871): what
+# each selective mode saves; the rest recomputes in the backward.  The
+# weight products are the linears' mm/addmm over the flattened rows (the
+# JAX package's batch-dim-free dots); the attention forward is one op
+# (ops/joint_attention.joint_attention_op), and its plain version's
+# batched products run inside it.
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_ATTN = (torch.ops.echo_tts.joint_attention.default,)
+_REMAT_SAVES = {
+    "dots": _MM,
+    "dots_all": _MM + (torch.ops.aten.bmm.default,) + _ATTN,
+    "attn": _ATTN,
+}
+REMAT_MODES = ("none", "full") + tuple(_REMAT_SAVES)
+
+
+def remat_mode(remat: Union[bool, str]) -> str:
+    """dit_forward's `remat` as one of REMAT_MODES: False -> "none",
+    True -> "full"; anything else raises."""
+    mode = "full" if remat is True else "none" if remat is False else remat
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT_MODES} "
+                         "(or False / True)")
+    return mode
+
+
+def _remat_context_fn(mode: str):
+    saves = _REMAT_SAVES[mode]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saves
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
                        kv_static: Union[KV, Dict[str, torch.Tensor]],
                        spk_cols: torch.Tensor,
                        static_mask: torch.Tensor, *, start_pos: int = 0,
-                       speaker_scale_by_layer: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       speaker_scale_by_layer: Optional[torch.Tensor] = None,
+                       remat: Union[bool, str] = False) -> torch.Tensor:
     """Denoiser forward over the pre-concatenated static KV (dit.py:685).
 
     x (GB, S, latent) and t (GB,) in the model dtype; kv_static the (k, v)
     pair from concat_static_kv, or its int8 form from
     ops.quant.quantize_kv_int8 (dit.py:716-756); static_mask (GB, T) bool;
-    speaker_scale_by_layer (L,) fp32.  Returns float32 (model.py:604)."""
-    cfg = model.cfg
-    s = x.shape[1]
-    freqs_q = freqs_tensor(cfg.head_dim, start_pos + s, x.device)[start_pos:]
-
-    cond = get_timestep_embedding(t, cfg.timestep_embed_size)
-    cond = model.cond_module(cond)[:, None]        # (GB, 1, 3M)
-    h = model.in_proj(x)
-    # every layer's (T,) column scale in one table: 1 off the speaker
-    # columns, the layer's speaker-KV scale on them
-    col_scales = None
-    if speaker_scale_by_layer is not None:
-        col_scales = 1.0 + ((speaker_scale_by_layer.float()[:, None] - 1.0)
-                            * spk_cols.float())
+    speaker_scale_by_layer (L,) fp32.  remat checkpoints each layer for
+    the backward (non-reentrant torch.utils.checkpoint): False/"none"
+    saves everything; True/"full" saves nothing (every layer re-runs its
+    forward, kernel A included); "dots" saves the weight products;
+    "dots_all" the weight products and the attention; "attn" only the
+    attention output.  int8 K/V serve and never train, so they take no
+    remat.  Returns float32 (model.py:604)."""
+    mode = remat_mode(remat)
     kv_q8 = kv_is_quantized(kv_static)
+    if kv_q8 and mode != "none":
+        raise ValueError(f"remat={remat!r} with int8 static K/V: the int8 "
+                         "form serves and never trains")
+    h, cond, freqs_q = _embed(model, x, t, start_pos)
+    col_scales = _layer_col_scales(speaker_scale_by_layer, spk_cols)
+    layer = functools.partial(_dit_layer, cfg=model.cfg)
     for li, blk in enumerate(model.blocks):
         col_scale = None if col_scales is None else col_scales[li]
         if kv_q8:
@@ -462,15 +548,45 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
             kv_scales = (kv_static["ks"][li], kv_static["vs"][li])
         else:
             k_st, v_st, kv_scales = kv_static[0][li], kv_static[1][li], None
-        h_norm, gate = low_rank_adaln(h, cond, blk.attention_adaln, cfg.norm_eps)
-        h = h + gate * _joint_attention_static(
-            blk.attention, h_norm, static_mask, col_scale, freqs_q,
-            k_st, v_st, num_heads=cfg.num_heads, eps=cfg.norm_eps,
-            kv_scales=kv_scales)
-        h_norm, gate = low_rank_adaln(h, cond, blk.mlp_adaln, cfg.norm_eps)
-        h = h + gate * _mlp(blk.mlp, h_norm)
-    h = rms_norm(h, model.out_norm.weight, cfg.norm_eps)
-    return model.out_proj(h).float()
+        args = (blk, h, cond, freqs_q, static_mask, col_scale, k_st, v_st,
+                kv_scales)
+        if mode == "none":
+            h = layer(*args)
+        elif mode == "full":
+            h = checkpoint(layer, *args, use_reentrant=False)
+        else:
+            h = checkpoint(layer, *args, use_reentrant=False,
+                           context_fn=_remat_context_fn(mode))
+    return _out(model, h)
+
+
+def dit_forward(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
+                text_mask: torch.Tensor, speaker_mask: torch.Tensor,
+                kv_text: KV, kv_speaker: KV, *, start_pos: int = 0,
+                kv_latent: Optional[KV] = None,
+                latent_mask: Optional[torch.Tensor] = None,
+                speaker_scale_by_layer: Optional[torch.Tensor] = None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
+    """One denoiser forward over [self, latent prefix?, text, speaker]
+    (dit.py:767-882; reference: model.py:563-604): the form training
+    differentiates.
+
+    x (GB, S, latent) and t (GB,) in the model dtype; text_mask and
+    speaker_mask (GB, T_seg) bool, the speaker mask subsampled here by
+    speaker_patch_size (model.py:581); kv_* (L, B, T_seg, H, Dh); the
+    optional latent prefix comes with its (GB, T_lat) mask;
+    speaker_scale_by_layer (L,) multiplies the speaker K and V of each
+    layer (kernel A's column scale).  The segments are concatenated once,
+    as the JAX package's kernel branch does (dit.py:516-539), and
+    dit_forward_static runs the layers, with remat as it takes it.
+    Returns float32."""
+    static_mask = static_attention_mask(model.cfg, text_mask, speaker_mask,
+                                        latent_mask)
+    kv_static, spk_cols = concat_static_kv(kv_text, kv_speaker, kv_latent)
+    return dit_forward_static(model, x, t, kv_static, spk_cols, static_mask,
+                              start_pos=start_pos,
+                              speaker_scale_by_layer=speaker_scale_by_layer,
+                              remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -508,3 +624,10 @@ def init_dit(cfg: EchoDiTConfig, *, device="cuda", dtype=torch.bfloat16,
     model = model.to(dtype).to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_random_(model, gen).eval().requires_grad_(False)
+
+
+def trainable_copy(model: nn.Module) -> nn.Module:
+    """A copy of `model` whose parameters require grad, for training to
+    update; `model` (frozen, as init_dit and the bridge give it) is left
+    as it is."""
+    return copy.deepcopy(model).requires_grad_(True)

@@ -14,7 +14,10 @@ def _freqs(embed_size: int, device: torch.device) -> torch.Tensor:
     freqs = 1000.0 * np.exp(
         -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
     ).astype(np.float32)
-    return torch.from_numpy(freqs).to(device)
+    # a normal tensor even when first asked for under inference mode (see
+    # ops/rope.py)
+    with torch.inference_mode(False):
+        return torch.from_numpy(freqs).to(device)
 
 
 def get_timestep_embedding(timestep: torch.Tensor, embed_size: int) -> torch.Tensor:

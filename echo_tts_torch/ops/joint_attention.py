@@ -19,14 +19,18 @@ with `kv_scales=(ks, vs)`, (B, T, H) fp32: their per-column products with
 the column scale become the K and V scales.  Launches of that form are
 counted apart, in `fused_joint_attention.launches_kv8`.
 
-Gradients: where grad mode is on and an input requires grad, the kernel
+Gradients: where grad mode is on and an input requires grad, the forward
 runs inside `_KernelWithPlainGrad`, whose backward recomputes through
 `joint_attention_plain` under autograd, as the JAX package's custom VJP
-recomputes through `_xla_attention` (joint_attention.py:404-434).  The
-int8 form has no gradient: it raises.  Calls without grad launch the
-kernel directly: through the Function a call costs the host 10-23 us
-more (chip_smoke.py's paired count on an H100 80GB HBM3 at 700 W), on a
-sampler pass of 960 calls that the host bounds.
+recomputes through `_xla_attention` (joint_attention.py:404-434).  Its
+forward is one dispatcher op, `torch.ops.echo_tts.joint_attention` (the
+plain version for CPU tensors, the kernel's launch for CUDA tensors), so
+that a selective activation checkpoint can save its output by name
+(models/dit.py, remat "attn" and "dots_all").  The int8 form has no
+gradient: it raises.  Calls without grad launch the kernel directly:
+through the Function a call costs the host 10-23 us more (chip_smoke.py's
+paired count on an H100 80GB HBM3 at 700 W), on a sampler pass of 960
+calls that the host bounds.
 """
 from __future__ import annotations
 
@@ -171,6 +175,21 @@ def _launch(q, k_self, v_self, k_static, v_static, static_mask, col_scale,
     return out
 
 
+@torch.library.custom_op("echo_tts::joint_attention", mutates_args=())
+def joint_attention_op(q: torch.Tensor, k_self: torch.Tensor,
+                       v_self: torch.Tensor, k_static: torch.Tensor,
+                       v_static: torch.Tensor, static_mask: torch.Tensor,
+                       col_scale: Optional[torch.Tensor],
+                       sm_scale: float) -> torch.Tensor:
+    """The forward under grad as one op: the plain version for CPU
+    tensors, the kernel's launch (counted) for CUDA tensors."""
+    if q.device.type == "cpu":
+        return joint_attention_plain(q, k_self, v_self, k_static, v_static,
+                                     static_mask, col_scale, sm_scale=sm_scale)
+    return _launch(q, k_self, v_self, k_static, v_static, static_mask,
+                   col_scale, sm_scale)
+
+
 class _KernelWithPlainGrad(torch.autograd.Function):
     """`forward_fn` (the kernel's launch) in the forward; in the backward,
     joint_attention_plain recomputed under autograd and differentiated, so
@@ -217,8 +236,8 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
     launch the kernel and count the launch in
     `fused_joint_attention.launches` (bf16 static K/V) or
     `fused_joint_attention.launches_kv8` (int8).  Under grad, the float
-    form carries the plain version's gradient (module docstring); the
-    int8 form raises."""
+    form carries the plain version's gradient on both devices (module
+    docstring); the int8 form raises."""
     gb, s, h, dh = q.shape
     b, t = k_static.shape[:2]
     if (k_self.shape != q.shape or v_self.shape != q.shape
@@ -247,16 +266,16 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
         raise RuntimeError("joint attention over int8 static K/V has no "
                            "gradient; run it without grad, or with bf16 or "
                            "fp32 static K/V")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if grad:
+        return _KernelWithPlainGrad.apply(joint_attention_op, sm_scale, q,
+                                          k_self, v_self, k_static, v_static,
+                                          static_mask, col_scale)
     if q.device.type == "cpu":
         return joint_attention_plain(q, k_self, v_self, k_static, v_static,
                                      static_mask, col_scale, sm_scale=sm_scale,
                                      kv_scales=kv_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if grad:
-        return _KernelWithPlainGrad.apply(_launch, sm_scale, q, k_self, v_self,
-                                          k_static, v_static, static_mask,
-                                          col_scale)
     return _launch(q, k_self, v_self, k_static, v_static, static_mask,
                    col_scale, sm_scale, kv_scales)
 

@@ -21,8 +21,10 @@ every per-output-channel scale reduces over the last axis, which gives
 the numbers the JAX package gets over axis -2 of its (K, N).
 
 The K-halves int4 packing (W4A8, a rejected mode kept for checkpoint
-compatibility) is here too.  Quantization-aware training (`qat_dot`,
-`qat_tag_dit_params`) belongs to the training slice and is not ported.
+compatibility) is here too, and quantization-aware training: `qat_dot`
+(W8A8 fake quantization in fp32 with straight-through gradients) and
+`qat_tag_dit_params`, a view of the DiT whose hot-loop linears run
+through it while sharing the plain model's parameters.
 """
 from __future__ import annotations
 
@@ -214,3 +216,78 @@ def dequantize_kv(q: Dict[str, torch.Tensor], dtype=torch.bfloat16
 
 def kv_is_quantized(kv) -> bool:
     return isinstance(kv, dict) and all(x in kv for x in KV_Q8_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware training (ops/quant.py:300-348): the forward takes
+# int8_dot's quantization decisions (per-output-channel weights, per-row
+# activations, symmetric 127) in fp32 arithmetic, and gradients pass
+# straight through the rounding (the scales are detached).  It never
+# launches kernel C, which has no gradient.
+# ---------------------------------------------------------------------------
+
+class _RoundClipSTE(torch.autograd.Function):
+    """clip(round_ste(v), -127, 127) as the JAX package computes it,
+    v + stop_gradient(round(v) - v) then jnp.clip, whose maximum and
+    minimum each give half the gradient to a tie: the gradient is 1 inside
+    the range, 1/2 at exactly -127 or 127, 0 outside.  The backward keeps
+    that multiplier in bf16 (0, 1/2 and 1 are exact), not the fp32
+    operands autograd would keep (QAT's memory at full size)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        r = v + (torch.round(v) - v)
+        ctx.save_for_backward(((r.abs() < 127.0).to(torch.bfloat16)
+                               + 0.5 * (r.abs() == 127.0).to(torch.bfloat16)))
+        return torch.clamp(r, -127.0, 127.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (mult,) = ctx.saved_tensors
+        return grad * mult
+
+
+def _scale127(a: torch.Tensor) -> torch.Tensor:
+    """max(abs-max over the last axis, 1e-12) / 127, detached, (..., 1);
+    a true division on every device (see quantize_last)."""
+    amax = a.detach().abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    return amax / torch.full_like(amax, 127.0)
+
+
+def qat_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T, w (N, K) as nn.Linear holds it, with W8A8 fake
+    quantization on both operands; int8_dot's values up to fp32 against
+    int32 accumulation; the result in x's dtype.  d/dw is the plain
+    product's gradient inside the clip range (straight through)."""
+    xf = x.float()
+    x_scale = _scale127(xf)
+    xq = _RoundClipSTE.apply(xf / x_scale)
+    wf = w.float()
+    w_scale = _scale127(wf)
+    wq = _RoundClipSTE.apply(wf / w_scale)
+    out = torch.matmul(xq, wq.transpose(-1, -2)) * x_scale * w_scale[..., 0]
+    return out.to(x.dtype)
+
+
+class QATLinear(nn.Module):
+    """A bias-free linear whose forward is qat_dot; it holds the plain
+    linear's weight Parameter itself, so an optimizer over the plain model
+    updates what it reads."""
+
+    def __init__(self, linear: nn.Module):
+        super().__init__()
+        if type(linear) is not nn.Linear or linear.bias is not None:
+            raise TypeError(f"QAT takes bias-free nn.Linear leaves, got "
+                            f"{type(linear).__name__}")
+        self.weight = linear.weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qat_dot(x, self.weight)
+
+
+def qat_tag_dit_params(model: nn.Module) -> nn.Module:
+    """The QAT view of a DiT (counterpart of qat_tag_dit_params): a new
+    EchoDiT whose DIT_BLOCK_QUANT_KEYS leaves are QATLinear over the same
+    Parameters, every other submodule shared by reference.  Built inside
+    the loss, so that the optimizer keeps the plain model."""
+    return _map_hot_linears(model, QATLinear)

@@ -27,7 +27,10 @@ def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0) -> np.ndarr
 
 @functools.lru_cache(maxsize=64)
 def _freqs_on(dim: int, end: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(precompute_freqs_cis(dim, end).copy()).to(device)
+    # a normal tensor even when first asked for under the samplers'
+    # inference mode: training saves it for the backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(precompute_freqs_cis(dim, end).copy()).to(device)
 
 
 def freqs_tensor(dim: int, end: int, device) -> torch.Tensor:

@@ -348,17 +348,33 @@ def load_models_from_dir(model_dir: str, device="cuda", dtype=torch.bfloat16,
     """The published safetensors in `model_dir` (the layout of the JAX
     package's serve/models.py:_load_from_dir), loaded under their own keys.
     Raises without CUDA unless device='cpu'."""
+    return load_models_from_files(
+        os.path.join(model_dir, DIT_WEIGHTS),
+        os.path.join(model_dir, DAC_WEIGHTS),
+        os.path.join(model_dir, PCA_WEIGHTS), device, dtype,
+        dit_cfg=dit_cfg, dac_cfg=dac_cfg)
+
+
+def load_models_from_files(dit_path: str, dac_path: str, pca_path: str,
+                           device="cuda", dtype=torch.bfloat16, *,
+                           dit_cfg: Optional[EchoDiTConfig] = None,
+                           dac_cfg: Optional[DACConfig] = None,
+                           dac_dtype: Optional[torch.dtype] = None
+                           ) -> EchoModels:
+    """The published DiT, codec and PCA safetensors at these paths; the
+    codec in the serving setting (`_codec_setup`) unless `dac_cfg` or
+    `dac_dtype` say otherwise.  Raises without CUDA unless device='cpu'."""
     from safetensors.torch import load_file
 
     device = resolve_device(device)
     dit_cfg = dit_cfg or base_dit_config()
-    dac_cfg, dac_dtype = _codec_setup(device, dac_cfg)
-    pca = load_file(os.path.join(model_dir, PCA_WEIGHTS))
+    dac_cfg, default_dac_dtype = _codec_setup(device, dac_cfg)
+    pca = load_file(pca_path)
     return EchoModels(
-        dit=load_dit_state(load_file(os.path.join(model_dir, DIT_WEIGHTS)),
-                           dit_cfg, device=device, dtype=dtype),
-        dac=load_dac_state(load_file(os.path.join(model_dir, DAC_WEIGHTS)),
-                           dac_cfg, device=device, dtype=dac_dtype),
+        dit=load_dit_state(load_file(dit_path), dit_cfg, device=device,
+                           dtype=dtype),
+        dac=load_dac_state(load_file(dac_path), dac_cfg, device=device,
+                           dtype=dac_dtype or default_dac_dtype),
         pca=pca_state({"components": pca["pca_components"].float().numpy(),
                        "mean": pca["pca_mean"].float().numpy(),
                        "latent_scale": pca["latent_scale"].float().numpy()},

@@ -1,16 +1,15 @@
 """Loading and caching the model bundle for serving.
 
 Counterpart of echo_tts_tpu/serve/models.py.  The bundle is an
-`EchoModels` from the published safetensors in `model_dir`
-(`pipeline.load_models_from_dir`) or, for development and tests, seeded
+`EchoModels` from `model_dir`, which holds either the port's own
+checkpoint bundle (tools/checkpoint.py: a distilled student, or any model
+trained here, with its own configs) or the published safetensors
+(`pipeline.load_models_from_dir`); or, for development and tests, seeded
 random weights (`pipeline.random_models`).  ECHO_DIT_QUANT=int8 serves the
 W8A8 DiT (`ops.quant.quantize_dit`): the mode changes only the modules,
 never a code path downstream.  The codec's decoder snake follows the
-device unless ECHO_SNAKE_APPROX says otherwise (`_serving_dac_config`).
-
-Not ported yet: the orbax bundle checkpoints of `_is_bundle_checkpoint`
-(they wait for the training slice's checkpoint tools; such a directory
-fails here for want of the safetensors).
+device unless ECHO_SNAKE_APPROX says otherwise (`_serving_dac_config`);
+a bundle keeps the snake it was saved with.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from ..config import DACConfig, base_dac_config
 from ..device import resolve_device
 from ..ops.quant import dit_is_quantized, quantize_dit
 from ..pipeline.pipeline import EchoModels, load_models_from_dir, random_models
+from ..tools.checkpoint import is_bundle, load_checkpoint
 
 log = logging.getLogger("echo_tts_torch.serve")
 
@@ -81,7 +81,10 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
                     f"serve them for {key}: call clear_models() first")
             return _MODELS
         t0 = time.time()
-        if not use_random:
+        if not use_random and is_bundle(model_dir):
+            models = load_checkpoint(model_dir, device, dtype)
+            log.info("loaded the checkpoint bundle in %.1fs", time.time() - t0)
+        elif not use_random:
             models = load_models_from_dir(model_dir, device, dtype,
                                           dac_cfg=dac_cfg)
         elif allow_random:

@@ -250,12 +250,21 @@ def _load(module: torch.nn.Module, state: Mapping,
     return module.eval().requires_grad_(False)
 
 
+def _latent_key(key: str) -> bool:
+    return (key.startswith(("latent_encoder.", "latent_norm."))
+            or ".wk_latent." in key or ".wv_latent." in key)
+
+
 def load_dit_state(state: Mapping, cfg: EchoDiTConfig, *,
                    device="cuda", dtype=torch.bfloat16) -> EchoDiT:
     """An EchoDiT holding `state` (checkpoint keys), on `device`; a state
     with the int8 hot-loop leaves (`<linear>.scale` keys) gives the W8A8
-    model, whose int8 weights and fp32 scales keep their types."""
+    model, whose int8 weights and fp32 scales keep their types.  A
+    blockwise=False config leaves out the published checkpoint's latent
+    encoder, as the JAX package's converter does."""
     device = resolve_device(device)
+    if not cfg.blockwise:
+        state = {k: v for k, v in state.items() if not _latent_key(k)}
     with torch.device("meta"):
         model = EchoDiT(cfg).to(dtype)
         if "blocks.0.attention.wq.scale" in state:

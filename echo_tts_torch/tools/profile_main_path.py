@@ -1,6 +1,6 @@
 """Where the main path's device time goes, on one CUDA card.
 
-    python -m echo_tts_torch.tools.profile_main_path [--stream | --batch]
+    python -m echo_tts_torch.tools.profile_main_path [--stream | --batch | --train]
 
 Builds the seeded random models at full width (pipeline.random_models),
 answers one voice-cloned request (tests/data/voice.wav as the speaker,
@@ -32,6 +32,15 @@ With --batch it profiles instead chip_smoke.py's micro-batched request
 latent, padded to its speaker bucket, four without) with SAMPLER_DEFAULTS,
 as one stage (the B = 8 sampler pass, the decode in slices of 4, the
 crops) and its sampler pass alone.
+
+With --train it profiles instead one step of chip_smoke.py's request (i):
+train.step's train step under remat "attn" at B = 2 on a batch of the
+DataConfig shapes (640 latents, 768 text bytes, 640 speaker latents), on
+the published DiT at blockwise=False with seeded random bf16 weights, t
+and eps fixed.  Beside the top kernels it gives the device time under
+kernel A's forward op (echo_tts::joint_attention) and under its autograd
+backward (the plain recompute, _KernelWithPlainGradBackward), and under
+the optimizer update.
 """
 from __future__ import annotations
 
@@ -117,7 +126,10 @@ def _timed(fn, reps: int):
     return out, walls
 
 
-def _profiled(name: str, fn, walls: list) -> dict:
+def _profiled(name: str, fn, walls: list, scopes=()) -> dict:
+    """One profiled run of fn: wall (median of `walls`), device busy, idle
+    share, the top kernels, the hand-written ones, and the device time
+    under each (label, host op name) of `scopes` (_scope_ms)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -133,6 +145,12 @@ def _profiled(name: str, fn, walls: list) -> dict:
     for n, k in res["hand_written"].items():
         print(f"    hand-written: {n} {k['ms']:.3f} ms, {k['calls']} launches",
               flush=True)
+    res["scopes"] = {}
+    for label, key in scopes:
+        ms = _scope_ms(prof, key)
+        res["scopes"][label] = {"ms": ms, "share_of_busy": ms / res["busy_ms"]}
+        print(f"    under {label}: {ms:.2f} ms ({100 * ms / res['busy_ms']:.1f}"
+              " % of the busy time)", flush=True)
     return res
 
 
@@ -190,6 +208,58 @@ def batch_stages(models, voice) -> list:
             _profiled("sampler_b8", sampler, smp_ms)]
 
 
+def _scope_ms(prof, key: str) -> float:
+    """The device ms of the host ops whose name holds `key`, each with the
+    kernels of the ops under it, not counting one nested in another."""
+    total = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or key not in ev.name:
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and key not in parent.name:
+            parent = parent.cpu_parent
+        if parent is None:
+            total += ev.device_time_total / 1e3
+    return total
+
+
+def train_stages() -> list:
+    """Request (i)'s train step under remat "attn", profiled."""
+    from ..config import base_dit_config
+    from ..models.dit import init_dit
+    from ..train import step as tstep
+
+    model = init_dit(base_dit_config(blockwise=False), seed=0)
+    dev, lat = model.in_proj.weight.device, model.cfg.latent_size
+    g = torch.Generator(device=dev).manual_seed(60)
+    ids, tmask = get_text_input_ids_and_mask([TEXT, TEXT[:40]],
+                                             MAX_TEXT_LENGTH)
+    smask = torch.zeros((2, 640), dtype=torch.bool, device=dev)
+    smask[0], smask[1, :300] = True, True
+    batch = {"latents": torch.randn((2, 640, lat), generator=g, device=dev),
+             "text_ids": torch.from_numpy(ids).to(dev),
+             "text_mask": torch.from_numpy(tmask).to(dev),
+             "speaker_latent": torch.randn((2, 640, lat), generator=g,
+                                           device=dev),
+             "speaker_mask": smask}
+    t = torch.rand((2,), generator=g, device=dev)
+    eps = torch.randn((2, 640, lat), generator=g, device=dev)
+    tx = tstep.make_optimizer()
+    state = tstep.create_train_state(model, tx)
+    del model
+    step = tstep.make_train_step(tx, remat="attn")
+
+    def train_step():
+        return step(state, batch, t=t, eps=eps)
+
+    train_step()                                            # warm-up
+    _, walls = _timed(train_step, REPS)
+    return [_profiled("train_step_attn_b2", train_step, walls, scopes=(
+        ("kernel A forward", "echo_tts::joint_attention"),
+        ("kernel A plain-recompute backward", "_KernelWithPlainGradBackward"),
+        ("optimizer update", "Optimizer.step")))]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is False")
@@ -199,6 +269,9 @@ def main(argv) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if "--train" in argv:
+        print(json.dumps({"card": card, "stages": train_stages()}), flush=True)
+        return 0
 
     models = pl.random_models()
     sample_fn = functools.partial(pl.euler_sample_fn, **SAMPLER_DEFAULTS)
