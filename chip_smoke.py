@@ -49,7 +49,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      saved and loaded through serve.models.load_models bit for bit, then a
      handler job with few_step_sampler_params(8) in bf16 and under
      ECHO_DIT_QUANT=int8; (m) one DemoSession.generate_audio, bit for bit
-     sample_pipeline's;
+     sample_pipeline's; then scale-out (echo_tts_torch/parallel/): (n)
+     request (b) again at world size 1, through initialize_from_env (NCCL
+     on localhost), global_mesh(tp=1), shard_models and place_request, its
+     latents bit for bit (b)'s and 960 kernel A launches, then (b)'s inputs
+     through the fp32 sampler (plain attention); (o) two ranks on the one
+     card (torch.multiprocessing spawn, a gloo world: NCCL refuses two
+     ranks on one device), each building the published DiT and its own
+     unsharded references: SP tp=2 at 6400 latents, DP=2 on a B = 2
+     request, TP=2 and W8A8 TP=2 forwards (kernel A at 8 heads; kernel C's
+     given-scale instance in the row-parallel products), request (b)'s 40
+     steps at TP=2 (held to the fp32 latents within TP_FP32_RATIO times
+     (b)'s own distance), and a TP=2 and a DP=2 train step at
+     TRAIN_DEPTH layers against the one-card step, every launch count
+     exact (request_two_ranks says each gate);
   4. each kernel against its plain PyTorch version on the card at the main
      path's shapes (and at ragged shapes shorter than one tile): joint
      attention with bf16 and with int8 static K/V, at the streaming
@@ -62,8 +75,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      grad alone); the
      residual stack, one-shot (at batch 1 and, as request h decodes, 4)
      and in its history form at streamed block shapes (new history
-     checked too, zero history bit-equal to the one-shot kernel); and the W8A8 matmul (fp32 output within 1e-5 of the
-     plain version, bf16 output rel-RMS); max-abs and rel-RMS error against
+     checked too, zero history bit-equal to the one-shot kernel); the W8A8 matmul (fp32 output within 1e-5 of the
+     plain version, bf16 output rel-RMS); kernel A at a tensor-parallel
+     rank's 8 and 4 heads and kernel C's given-scale instance at the
+     row-parallel K-slices (its int32 sums equal to the plain version's);
+     max-abs and rel-RMS error against
      the bound rel-RMS <= 1e-2 (for the residual stack also over its first
      row tile alone); kernel / plain / library device times (torch.profiler's sum
      of the device intervals the calls queue; kernel C's pre-pass and
@@ -266,20 +282,22 @@ def _read(counters) -> dict:
 
 
 def kernel_counters() -> dict:
-    from echo_tts_torch.ops.int8_matmul import int8_matmul_fused
+    from echo_tts_torch.ops.int8_matmul import (int8_matmul_fused,
+                                                int8_matmul_partial)
     from echo_tts_torch.ops.joint_attention import fused_joint_attention
     from echo_tts_torch.ops.res_stack import fused_res_stack
     return {"joint_attention": (fused_joint_attention, "launches"),
             "joint_attention_kv8": (fused_joint_attention, "launches_kv8"),
             "int8_matmul": (int8_matmul_fused, "launches"),
+            "int8_matmul_partial": (int8_matmul_partial, "launches"),
             "res_stack": (fused_res_stack, "launches"),
             "res_stack_stream": (fused_res_stack, "launches_stream")}
 
 
-def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0) -> dict:
+def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0) -> dict:
     return {"joint_attention": attn, "joint_attention_kv8": kv8,
-            "int8_matmul": int8, "res_stack": res,
-            "res_stack_stream": res_stream}
+            "int8_matmul": int8, "int8_matmul_partial": partial,
+            "res_stack": res, "res_stack_stream": res_stream}
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +340,7 @@ def phase_build():
 
 def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
                    n_lat: int = 0, lat_valid: int = 0, b: int = 1,
-                   spk_lens=None, under_grad: bool = False):
+                   spk_lens=None, under_grad: bool = False, h: int = 16):
     """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
     quantize_kv_int8 of the same bf16 K/V) and passes their scales.  With
     n_lat, the static columns are [latent, text, speaker] as a streamed
@@ -333,11 +351,12 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     masked, as a batch padded to one speaker bucket is).  under_grad:
     q, k_self, v_self and the static K/V require grad, so that the
     forward runs as training's does, through the autograd Function (its
-    kernel launch counted; no backward here)."""
+    kernel launch counted; no backward here).  h: the heads (16, or a
+    tensor-parallel rank's)."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
     from echo_tts_torch.ops import quant
-    h, dh = 16, 128
+    dh = 128
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -783,6 +802,68 @@ def int8_matmul_case(m: int, k: int, n: int, seed: int):
     return res
 
 
+def int8_partial_case(m: int, k: int, n: int, seed: int):
+    """Kernel C's row-parallel instance at one (M, K-slice, N): x bf16, its
+    row scale taken over the whole K (this slice and a second one of the
+    same width), the weight's slice quantized by the port's
+    quantize_weight_int8.  Its int32 sums must equal the plain version's
+    exactly."""
+    import torch
+    from echo_tts_torch.ops import int8_matmul as im
+    from echo_tts_torch.ops import quant
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    other = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=g, device=dev)
+         * (2 * k) ** -0.5).to(torch.bfloat16)
+    w8, _ = quant.quantize_weight_int8(w)
+    amax = torch.maximum(x.float().abs().amax(-1), other.float().abs().amax(-1))
+    xs = amax.clamp_min(1e-12) / torch.full_like(amax, 127.0)
+    out = im.int8_matmul_partial(x, w8, xs)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_partial_plain(x, w8, xs)
+    if out.dtype != torch.int32 or not torch.equal(out, ref):
+        raise AssertionError(f"int8_matmul_partial M={m} K={k} N={n}: int32 "
+                             f"sums differ from the plain version's by up to "
+                             f"{int((out.long() - ref.long()).abs().max())}")
+    kernel = timed(lambda: im.int8_matmul_partial(x, w8, xs), 50)
+    prepass_ms = (sum(v for name, v in kernel["by_name"].items()
+                      if "quantize_rows" in name) if kernel["by_name"] else None)
+    plain_ms = timed(lambda: im.int8_matmul_partial_plain(x, w8, xs), 5)["ms"]
+    # yardstick only: the library's int8 product on pre-quantized operands
+    xq = torch.clamp(torch.round(x.float() / xs[:, None]), -127, 127).to(
+        torch.int8)
+    library_ms = timed(lambda: torch._int_mm(xq, w8.t()), 50)["ms"]
+    # x bf16, w int8 and the row scales read once; int32 sums written once
+    nbytes = m * k * 2 + n * k + m * 4 + m * n * 4
+    b_ms, b_by = bound(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
+    res = dict(shape=f"M={m} K={k} N={n} given scale, int32 out",
+               max_abs_err=0.0, rel_rms=0.0, ms=kernel["ms"],
+               prepass_ms=prepass_ms, host_us=kernel["host_us"],
+               timer=kernel["timer"], plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / kernel["ms"])
+    log(f"  int8_matmul_partial {res['shape']}: int32 equal to plain; "
+        f"kernel_ms {kernel['ms']:.4f} (pre-pass "
+        f"{'not measured' if prepass_ms is None else f'{prepass_ms:.4f}'}) "
+        f"host_us {kernel['host_us']:.1f} plain_ms {plain_ms:.4f} _int_mm_ms "
+        f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}), "
+        f"{100 * b_ms / kernel['ms']:.1f} % of the bound")
+    return res
+
+
+def scale_out_cases():
+    """Requests (n) and (o)'s kernel shapes: kernel A at request (b)'s
+    CFG step with a tensor-parallel rank's heads (8 at tp = 2, 4 at tp =
+    4), and kernel C's row-parallel instance at wo's and w2's K-slices at
+    tp = 2 on a CFG step (M = 1920; K = 1024 and 2944 -> N = 2048)."""
+    return ([attention_case(3, 640, 778, seed=130, h=8),
+             attention_case(3, 640, 778, seed=131, h=4)],
+            [int8_partial_case(1920, 1024, 2048, seed=132),
+             int8_partial_case(1920, 2944, 2048, seed=133)])
+
+
 def training_cases():
     """Kernel A at request (i)'s shapes: B = 2 (GB = 2, no CFG branches),
     S = 640, T = 768 text + 160 speaker columns, the second row's speaker
@@ -953,6 +1034,16 @@ def phase_main_path(card: str):
 
     timed_sample_fn = timing(sample_fn, "sampler")
     timed_sample_fn_q = timing(sample_fn_q, "sampler")
+    # request (b)'s sampler inputs and latents, which requests (n) and (o)
+    # run again through the scale-out layer
+    req_b = {}
+
+    def recording_b(models_, spk, smask, ids, tmask, seed):
+        out = timed_sample_fn(models_, spk, smask, ids, tmask, seed)
+        req_b.update(spk=spk, smask=smask, ids=ids, tmask=tmask, seed=seed,
+                     latents=out.clone())
+        return out
+
     pl.dsp.crop_audio_to_flattening_point = recording_crop
     pl.ae_decode = timing(decode, "decode")
     # (name, run, sampler calls, encoded speaker chunks, int8 modes)
@@ -960,7 +1051,7 @@ def phase_main_path(card: str):
         ("a: sample_pipeline, no speaker", lambda: pl.sample_pipeline(
             models, timed_sample_fn, TEXT, None, 0), 1, 0, False),
         ("b: sample_pipeline, voice.wav", lambda: pl.sample_pipeline(
-            models, timed_sample_fn, TEXT, voice, 1), 1, n_voice_chunks, False),
+            models, recording_b, TEXT, voice, 1), 1, n_voice_chunks, False),
         ("c: sample_pipeline_chunked, 2 chunks, voice.wav",
          lambda: pl.sample_pipeline_chunked(
              models, timed_sample_fn, LONG_TEXT, voice, 2), 2, n_voice_chunks,
@@ -989,6 +1080,7 @@ def phase_main_path(card: str):
             want = {"joint_attention": 0 if int8_modes else attn,
                     "joint_attention_kv8": attn if int8_modes else 0,
                     "int8_matmul": n_int8_linears * attn if int8_modes else 0,
+                    "int8_matmul_partial": 0,
                     "res_stack": 3 * n_samples + 3 * n_enc,
                     "res_stack_stream": 0}
             if got != want:
@@ -1077,7 +1169,7 @@ def phase_main_path(card: str):
                     request_batch(models, counters, card)):
             for k, v in got.items():
                 launches[k] += v
-    return launches
+    return launches, req_b
 
 
 def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
@@ -1129,6 +1221,7 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
     n = len(schedule)
     want = {"joint_attention": cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n,
             "joint_attention_kv8": 0, "int8_matmul": 0,
+            "int8_matmul_partial": 0,
             "res_stack": 3 * n_voice_chunks, "res_stack_stream": 3 * n}
     name = f"e: stream_synthesize, voice.wav, chunk_sizes={schedule}"
     if got != want:
@@ -2061,6 +2154,293 @@ def phase_training(card: str) -> tuple:
                           data_loss=data_loss, distill=distill, bundle=bundle)
 
 
+# ---------------------------------------------------------------------------
+# phase 3, scale-out: requests (n) and (o)
+# ---------------------------------------------------------------------------
+
+# Request (o)'s TP=2 runs are held to the fp32 run (plain attention, TF32
+# off) on the same inputs: the sharded bf16 forward and 40-step latents no
+# farther from it than TP_FP32_RATIO times the unsharded bf16 ones are,
+# the sharded W8A8 forward no farther than W8A8_FP32_RATIO times the
+# unsharded W8A8 forward.  The sharded run differs from the unsharded one
+# only in roundings: column halves of a bf16 product are bit for bit the
+# whole product's, and the row-parallel partial sums stay fp32 until
+# their all-reduce (99.7-99.9 % of a product's outputs then round to the
+# unsharded bits, against 62.5 % with bf16 partials; H100 80GB HBM3,
+# 700 W).  The rest, one ulp here and there, the 24 random-weight layers
+# carry to 1.07e-2 rel-RMS between the two bf16 forwards, each 1.39e-2
+# from fp32: a bound of 1e-2 between them would sit below bf16's own
+# noise, as request (i) found for its gradients.  In W8A8 every such
+# difference can move an activation across an int8 rounding boundary,
+# and the sharded and unsharded forwards sit 2.76e-2 apart, as far as the
+# W8A8 forward sits from the bf16 one.  The row-parallel W8A8 product
+# itself is held bit for bit (rowpar_w8a8_exact), and kernel C's
+# given-scale instance against its plain version in phase 4.
+# (The ratios are parallel_checks.TP_FP32_RATIO and W8A8_FP32_RATIO.)
+TRAIN_DEPTH = 4           # request (o)'s train steps: DiT layers (encoders 2)
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def request_world1(req_b: dict, counters, card: str) -> tuple:
+    """Request (n): request (b) again through the scale-out layer at world
+    size 1: initialize_from_env (NCCL, ECHO_COORD on localhost),
+    global_mesh(tp=1), shard_models and place_request, then the sampler
+    with the mesh: its latents bit for bit (b)'s, 960 kernel A launches.
+    Then, on the same inputs, the fp32 sampler (plain attention) that
+    request (o) holds its TP=2 latents to, and the fp32 CFG forward its
+    TP=2 forward is measured against.  Returns (launches, the fp32
+    latents, the fp32 forward)."""
+    import torch
+    import torch.distributed as dist
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.parallel import distributed as pdist
+    from echo_tts_torch.parallel import inference as pinf
+    from echo_tts_torch.pipeline import pipeline as pl
+    from echo_tts_torch.sampler.euler import (
+        sample_euler_cfg_independent_guidances as sample)
+    from echo_tts_torch.tools import parallel_checks as pc
+
+    models = pl.random_models()          # seed 0: request (b)'s weights
+    dev = models.device
+    gen = torch.Generator(device=dev).manual_seed(int(req_b["seed"]))
+    noise = torch.randn((1, SAMPLER_DEFAULTS["sequence_length"],
+                         models.dit_cfg.latent_size), generator=gen,
+                        device=dev, dtype=torch.float32)
+    req_b["noise"] = noise
+    env = {"ECHO_COORD": f"127.0.0.1:{_free_port()}", "ECHO_NUM_PROCS": "1",
+           "ECHO_PROC_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not pdist.initialize_from_env() or dist.get_backend() != "nccl":
+            raise AssertionError("n: initialize_from_env did not join NCCL")
+        mesh = pdist.global_mesh(tp=1)
+        models = pinf.shard_models(models, mesh)
+        placed = pinf.place_request(mesh, req_b["spk"], req_b["smask"],
+                                    req_b["ids"], req_b["tmask"], noise)
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = sample(models.dit, *placed[:4], initial_noise=placed[4],
+                     dtype=models.dtype, mesh=mesh, **SAMPLER_DEFAULTS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = _read(counters)
+        world = dist.get_world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    n_attn = models.dit_cfg.num_layers * SAMPLER_DEFAULTS["num_steps"]
+    if got != _want(attn=n_attn):
+        raise AssertionError(f"n: launches {got}, want {_want(attn=n_attn)}")
+    if not torch.equal(lat, req_b["latents"]):
+        raise AssertionError("n: the world-size-1 latents differ from request "
+                             "(b)'s")
+    log(f"  request n: NCCL world of {world}, global_mesh(tp=1), request "
+        f"(b) through shard_models/place_request: latents bit-equal to (b)'s;"
+        f" launches {got}; sampler {wall:.1f} ms ({card})")
+
+    # the fp32 run on (b)'s inputs (plain attention: kernel A takes bf16)
+    _reset(counters)
+    lat32, fwd32 = pc.fp32_refs(models.dit, req_b)
+    torch.cuda.synchronize()
+    if _read(counters) != _want():
+        raise AssertionError("n: the fp32 run launched a kernel")
+    del models
+    _free()
+    return got, lat32, fwd32
+
+
+def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
+    """One of request (o)'s two ranks: a gloo world on the one card."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    from echo_tts_torch.config import base_dit_config
+    from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.parallel import mesh as pmesh
+    from echo_tts_torch.tools import parallel_checks as pc
+    from echo_tts_torch.tools.train_checks import train_batch
+
+    dev = torch.device("cuda")
+    tp2 = pmesh.make_mesh(dp=1, tp=2)
+    dp2 = pmesh.make_mesh(dp=2, tp=1)
+    res = {}
+
+    def done(key):
+        print(f"  request o rank {rank} {key}: {json.dumps(res[key])}",
+              flush=True)
+
+    model = tdit.init_dit(base_dit_config(), device=dev, seed=0)
+    res["sp"] = pc.sp_check(model, tp2)
+    done("sp")
+    req2 = pc.request_inputs(dev, batch=2)
+    ref2, res["dp_unsharded_ms"] = pc.wall_ms(lambda: pc.sample(model, req2))
+    res["dp"] = pc.dp_sample_check(model, dp2, req2, ref2)
+    done("dp")
+    del ref2
+    req_b = {k: v.to(dev) for k, v in payload["req_b"].items()}
+    res["tp_forward"] = pc.tp_forward_check(
+        model, tp2, req_b, payload["fp32_forward"].to(dev))
+    done("tp_forward")
+    pc.reset_launches()
+    lat, ms = pc.wall_ms(lambda: pc.sample(model, req_b, tp2))
+    lat_b, lat32 = req_b["latents"], payload["fp32_latents"].to(dev)
+    res["tp_sample"] = dict(
+        ms=ms, launches=pc.launches(), rel_rms_vs_unsharded=pc.rel_rms(lat, lat_b),
+        rel_rms_vs_fp32=pc.rel_rms(lat, lat32),
+        unsharded_vs_fp32=pc.rel_rms(lat_b, lat32))
+    done("tp_sample")
+    del model
+    torch.cuda.empty_cache()
+    cfg = pc.cut_config(TRAIN_DEPTH)
+    g = torch.Generator(device=dev).manual_seed(61)
+    batch = train_batch(cfg, 60, dev)
+    t = torch.rand((2,), generator=g, device=dev)
+    eps = torch.randn((2, 640, cfg.latent_size), generator=g, device=dev)
+    res["train_tp"] = pc.train_check(cfg, tp2, batch, t, eps, dev)
+    done("train_tp")
+    res["train_dp"] = pc.train_check(cfg, dp2, batch, t, eps, dev)
+    done("train_dp")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def request_two_ranks(req_b: dict, lat32, fwd32, card: str) -> tuple:
+    """Request (o): two ranks on the one card (torch.multiprocessing spawn,
+    a gloo world: NCCL refuses two ranks on one device), each building the
+    published DiT from seed 0 and its unsharded references on the card:
+    SP tp=2 (the 6400-latent speaker prefill within 1e-2 of
+    get_kv_cache_speaker), DP=2 (a B = 2 request's row within 1e-2 of the
+    unsharded pass, its noise row bit for bit, 960 kernel A launches),
+    TP=2 (one CFG forward within 1e-2 of the unsharded one, 24 kernel A
+    launches at 8 heads; the W8A8 forward within 1e-2 of the unsharded
+    W8A8 one, its row-parallel products through kernel C's given-scale
+    instance: 144 fused and 48 given-scale launches; each no farther from
+    the fp32 forward than TP_FP32_RATIO, W8A8_FP32_RATIO times the
+    unsharded one, and layer 0's row-parallel W8A8 product bit for bit
+    the whole one; request (b)'s 40 steps, 960 launches, no farther from
+    the fp32 latents than TP_FP32_RATIO times (b)'s own; the distances
+    between sharded and unsharded runs are printed beside them), and one
+    TP=2 and one DP=2 train step
+    at TRAIN_DEPTH layers against the one-card step (loss within 1e-3,
+    gradients within 1e-2).  A rank that fails fails the run.  Returns
+    (the launches summed over the ranks, the results)."""
+    import tempfile
+
+    import torch
+    from echo_tts_torch.tools import parallel_checks as pc
+
+    payload = {"req_b": {k: req_b[k].cpu() for k in
+                         ("spk", "smask", "ids", "tmask", "noise", "latents")},
+               "fp32_latents": lat32.cpu(), "fp32_forward": fwd32.cpu()}
+    _free()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_scale_out_rank,
+                                    args=(_free_port(), out_dir, payload),
+                                    nprocs=2)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    n_steps, n_layers = 40, 24
+    total = dict.fromkeys(kernel_counters(), 0)
+    for r, res in enumerate(ranks):
+        failed = pc.failures(res)
+        if failed:
+            raise AssertionError(f"o rank {r}: (distance, bound) {failed}")
+        want = {
+            "dp": dict(joint_attention=n_layers * n_steps, int8_matmul=0,
+                       int8_matmul_partial=0),
+            "tp_forward": dict(joint_attention=n_layers, int8_matmul=0,
+                               int8_matmul_partial=0),
+            "tp_forward_w8a8": dict(joint_attention=n_layers,
+                                    int8_matmul=6 * n_layers,
+                                    int8_matmul_partial=2 * n_layers),
+            "tp_sample": dict(joint_attention=n_layers * n_steps,
+                              int8_matmul=0, int8_matmul_partial=0),
+            "train_tp": dict(joint_attention=TRAIN_DEPTH, int8_matmul=0,
+                             int8_matmul_partial=0),
+            "train_dp": dict(joint_attention=TRAIN_DEPTH, int8_matmul=0,
+                             int8_matmul_partial=0)}
+        got = {"dp": res["dp"]["launches"],
+               "tp_forward": res["tp_forward"]["launches"],
+               "tp_forward_w8a8": res["tp_forward"]["w8a8_launches"],
+               "tp_sample": res["tp_sample"]["launches"],
+               "train_tp": res["train_tp"]["launches"],
+               "train_dp": res["train_dp"]["launches"]}
+        if (got != want or res["tp_forward"]["local_heads"] != 8
+                or res["dp"]["rows"] != [r, r + 1]):
+            raise AssertionError(
+                f"o rank {r}: launches {got}, want {want}; heads "
+                f"{res['tp_forward']['local_heads']}; rows {res['dp']['rows']}")
+        for counts in got.values():
+            for k, v in counts.items():
+                total[k] += v
+        log(f"  request o rank {r}: SP tp=2 6400 latents K/V rel-RMS "
+            f"{res['sp']['k_rel_rms']:.3e}/{res['sp']['v_rel_rms']:.3e} "
+            f"({res['sp']['ms']:.1f} ms, unsharded {res['sp']['unsharded_ms']:.1f});"
+            f" DP=2 row rel-RMS {res['dp']['rel_rms']:.3e}, noise bit-equal, "
+            f"{res['dp']['ms']:.1f} ms (B = 2 unsharded "
+            f"{res['dp_unsharded_ms']:.1f}); TP=2 forward rel-RMS "
+            f"{res['tp_forward']['rel_rms']:.3e} ({res['tp_forward']['ms']:.1f}"
+            f" ms; from fp32 {res['tp_forward']['rel_rms_vs_fp32']:.3e}, the "
+            f"unsharded bf16's {res['tp_forward']['unsharded_vs_fp32']:.3e},"
+            f" bound x{pc.TP_FP32_RATIO}), W8A8 "
+            f"{res['tp_forward']['w8a8_rel_rms']:.3e} (from fp32 "
+            f"{res['tp_forward']['w8a8_vs_fp32']:.3e}, the unsharded W8A8's "
+            f"{res['tp_forward']['w8a8_unsharded_vs_fp32']:.3e}, bound "
+            f"x{pc.W8A8_FP32_RATIO}; the unsharded W8A8 from bf16 "
+            f"{res['tp_forward']['w8a8_vs_bf16']:.3e}; row-parallel product "
+            f"bit-equal) "
+            f"({res['tp_forward']['w8a8_ms']:.1f} ms); TP=2 request (b) 40 "
+            f"steps {res['tp_sample']['ms']:.1f} ms: rel-RMS from the "
+            f"unsharded latents {res['tp_sample']['rel_rms_vs_unsharded']:.3e}"
+            f", from fp32 {res['tp_sample']['rel_rms_vs_fp32']:.3e} (the "
+            f"unsharded bf16's {res['tp_sample']['unsharded_vs_fp32']:.3e}, "
+            f"bound x{pc.TP_FP32_RATIO}); train step at {TRAIN_DEPTH} layers: "
+            f"TP=2 loss {res['train_tp']['loss']:.6f} (one card "
+            f"{res['train_tp']['loss_ref']:.6f}) gradients rel-RMS "
+            f"{res['train_tp']['grad_rel_rms']:.3e} ({res['train_tp']['ms']:.1f}"
+            f" ms), DP=2 loss {res['train_dp']['loss']:.6f} gradients "
+            f"{res['train_dp']['grad_rel_rms']:.3e} "
+            f"({res['train_dp']['ms']:.1f} ms) ({card})")
+    log(f"  request o: two ranks on one card over gloo, {wall:.1f} s")
+    return total, ranks
+
+
+def phase_scale_out(card: str, req_b: dict) -> tuple:
+    """Requests (n) and (o); returns (their launch counts, (o)'s results)."""
+    log("phase 3, scale-out: world size 1 over NCCL; two ranks on one card "
+        "over gloo (full width, seeded random weights)")
+    counters = kernel_counters()
+    got, lat32, fwd32 = request_world1(req_b, counters, card)
+    launches = dict(got)
+    got, ranks = request_two_ranks(req_b, lat32, fwd32, card)
+    for k, v in got.items():
+        launches[k] += v
+    return launches, ranks
+
+
 def summary(case: dict, *extra) -> dict:
     """A case's shape, times, bound and errors, for the kernels line."""
     keys = ("shape", "ms", "timer", "host_us", "plain_ms", "library_ms",
@@ -2093,18 +2473,24 @@ def main(argv) -> int:
     # sampler's wall time afterwards
     launches = trained = None
     if not kernels_only:
-        launches = phase_main_path(card)
+        launches, req_b = phase_main_path(card)
         got, trained = phase_training(card)
+        for k, v in got.items():
+            launches[k] += v
+        got, scaled = phase_scale_out(card, req_b)
         for k, v in got.items():
             launches[k] += v
     att, att8, att_bwd, rst, mm = phase_kernels()
     att_train = training_cases()
+    att_shard, mm_partial = scale_out_cases()
     if kernels_only:
         # the kernels alone, to time two trees' kernels in one call
         print(json.dumps({"cases": dict(attention=att, attention_kv8=att8,
                                         attention_backward=[att_bwd],
                                         attention_training=list(att_train),
-                                        res_stack=rst, int8_matmul=mm)}),
+                                        attention_shard=att_shard,
+                                        res_stack=rst, int8_matmul=mm,
+                                        int8_matmul_partial=mm_partial)}),
               flush=True)
         return 0
     rst_stream = next(r for r in rst if r["shape"] == "C=96 L=655360 "
@@ -2115,7 +2501,8 @@ def main(argv) -> int:
         kernel_entry(
             "joint_attention", "echo_tts_torch/csrc/joint_attention.cu",
             "echo_tts_tpu/ops/pallas/joint_attention.py:53 (_kernel) and "
-            ":105 (_flash_kernel)", att + att8 + [att_train[0]], att[0],
+            ":105 (_flash_kernel)", att + att8 + [att_train[0]] + att_shard,
+            att[0],
             launches["joint_attention"] + launches["joint_attention_kv8"],
             launches_bf16=launches["joint_attention"],
             launches_kv8=launches["joint_attention_kv8"],
@@ -2133,6 +2520,9 @@ def main(argv) -> int:
             demo=summary(next(r for r in att if r["shape"].startswith(
                 "GB=3 S=640 T=928"))),
             train_backward=summary(att_train[1]),
+            # requests (n) and (o): a tensor-parallel rank's heads at
+            # request (b)'s shape (8 at tp = 2, 4 at tp = 4)
+            shard_h8=summary(att_shard[0]), shard_h4=summary(att_shard[1]),
             launches_per_train_step={
                 mode: r["launches_per_step"]
                 for mode, r in trained["train"].items()},
@@ -2167,6 +2557,15 @@ def main(argv) -> int:
             max_abs_err_bf16=max(r["max_abs_err_bf16"] for r in mm),
             prepass_ms=mm[0]["prepass_ms"],
             bf16_matmul_ms=mm[0]["bf16_matmul_ms"]),
+        # the row-parallel instance at request (o)'s w2 slice (M = 1920, K =
+        # 5888 / 2); its int32 sums are held exactly (max_abs_err 0)
+        kernel_entry(
+            "int8_matmul_row_parallel", "echo_tts_torch/csrc/int8_matmul.cu",
+            "echo_tts_tpu/ops/pallas/int8_matmul.py:44 (_kernel), as GSPMD "
+            "splits the JAX package's int8_dot over a sharded K "
+            "(echo_tts_tpu/ops/quant.py:65)", mm_partial, mm_partial[1],
+            launches["int8_matmul_partial"],
+            wo=summary(mm_partial[0]), prepass_ms=mm_partial[1]["prepass_ms"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

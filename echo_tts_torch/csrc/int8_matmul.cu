@@ -62,6 +62,18 @@
 //  beyond its end are zero-filled by TMA and not stored; K must be a
 //  multiple of 16 (16-byte rows for TMA) and N of 8 (the wrapper checks,
 //  and `supported()` says so).
+//
+// The row-parallel instance (`echo_int8_matmul_partial`), for a K-slice
+// of a tensor-parallel layer (wo, w2; echo_tts_torch/parallel/mesh.py):
+// the row scale is given, taken over the whole K by the caller (an
+// all-reduce MAX of the slices' abs-max, as GSPMD takes it), and the
+// product writes the int32 sums without the rescale.  The caller sums the
+// slices' int32 outputs (an all-reduce, exact) and rescales once, so the
+// sharded layer equals the unsharded one bit for bit.  The same two
+// kernels with the pre-pass's abs-max and the epilogue's rescale
+// compiled out (template parameters GIVEN and OutT = int).
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -108,8 +120,9 @@ __device__ __forceinline__ uint2 quant8(const uint4& v, float s) {
 // hide the latency of the per-element IEEE division.  With CH > 0 (K <=
 // 1024 * CH) each thread loads its CH 16-byte chunks at once and keeps
 // them in registers, so x is read once; CH == 0 takes any K and reads the
-// row twice, the second time from L1/L2.
-template <int CH>
+// row twice, the second time from L1/L2.  GIVEN reads the row's scale
+// from x_scale instead of taking and writing it.
+template <int CH, bool GIVEN>
 __global__ void __launch_bounds__(128)
 int8_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
                           int8_t* __restrict__ xq, float* __restrict__ x_scale,
@@ -121,7 +134,6 @@ int8_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
   int8_t* qr = xq + (long long)row * K;
   constexpr int STEP = 128 * 8;   // elements per pass of the block
   uint4 v[CH > 0 ? CH : 1];
-  float amax = 0.f;
   if constexpr (CH > 0) {
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
@@ -129,21 +141,30 @@ int8_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
       v[i] = c < K ? *reinterpret_cast<const uint4*>(xr + c)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
-#pragma unroll
-    for (int i = 0; i < CH; ++i) amax = amax8(v[i], amax);
-  } else {
-#pragma unroll 4
-    for (int c = tid * 8; c < K; c += STEP)
-      amax = amax8(*reinterpret_cast<const uint4*>(xr + c), amax);
   }
+  float s;
+  if constexpr (GIVEN) {
+    s = x_scale[row];
+  } else {
+    float amax = 0.f;
+    if constexpr (CH > 0) {
 #pragma unroll
-  for (int o = 16; o; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (tid % 32 == 0) warp_max[tid / 32] = amax;
-  __syncthreads();
-  amax = fmaxf(fmaxf(warp_max[0], warp_max[1]), fmaxf(warp_max[2], warp_max[3]));
-  const float s = fmaxf(amax, 1e-12f) / 127.f;
-  if (tid == 0) x_scale[row] = s;
+      for (int i = 0; i < CH; ++i) amax = amax8(v[i], amax);
+    } else {
+#pragma unroll 4
+      for (int c = tid * 8; c < K; c += STEP)
+        amax = amax8(*reinterpret_cast<const uint4*>(xr + c), amax);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (tid % 32 == 0) warp_max[tid / 32] = amax;
+    __syncthreads();
+    amax = fmaxf(fmaxf(warp_max[0], warp_max[1]),
+                 fmaxf(warp_max[2], warp_max[3]));
+    s = fmaxf(amax, 1e-12f) / 127.f;
+    if (tid == 0) x_scale[row] = s;
+  }
   if constexpr (CH > 0) {
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
@@ -164,6 +185,10 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store2(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
 }
 
 template <int BN>
@@ -255,23 +280,37 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_a,
     wgmma_wait<0>();
     fence_regs(acc);
 
-    // epilogue: (float)acc * x_scale * w_scale, rounded once to OutT
+    // epilogue: (float)acc * x_scale * w_scale, rounded once to OutT; the
+    // int32 sums themselves for OutT = int
     const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
     const int r1 = r0 + 8;
-    const float s0 = r0 < M ? x_scale[r0] : 0.f;
-    const float s1 = r1 < M ? x_scale[r1] : 0.f;
+    if constexpr (std::is_same_v<OutT, int>) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane % 4);
-      if (col >= N) continue;   // N % 8 == 0, so col + 1 < N as well
-      const float ws0 = w_scale[col];
-      const float ws1 = w_scale[col + 1];
-      if (r0 < M)
-        store2(out + (long long)r0 * N + col, (float)acc[4 * j] * s0 * ws0,
-               (float)acc[4 * j + 1] * s0 * ws1);
-      if (r1 < M)
-        store2(out + (long long)r1 * N + col, (float)acc[4 * j + 2] * s1 * ws0,
-               (float)acc[4 * j + 3] * s1 * ws1);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        if (col >= N) continue;
+        if (r0 < M) store2(out + (long long)r0 * N + col, acc[4 * j],
+                           acc[4 * j + 1]);
+        if (r1 < M) store2(out + (long long)r1 * N + col, acc[4 * j + 2],
+                           acc[4 * j + 3]);
+      }
+    } else {
+      const float s0 = r0 < M ? x_scale[r0] : 0.f;
+      const float s1 = r1 < M ? x_scale[r1] : 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        if (col >= N) continue;   // N % 8 == 0, so col + 1 < N as well
+        const float ws0 = w_scale[col];
+        const float ws1 = w_scale[col + 1];
+        if (r0 < M)
+          store2(out + (long long)r0 * N + col, (float)acc[4 * j] * s0 * ws0,
+                 (float)acc[4 * j + 1] * s0 * ws1);
+        if (r1 < M)
+          store2(out + (long long)r1 * N + col,
+                 (float)acc[4 * j + 2] * s1 * ws0,
+                 (float)acc[4 * j + 3] * s1 * ws1);
+      }
     }
   }
 }
@@ -301,6 +340,18 @@ int launch_gemm(const void* xq, const void* w, const float* xs,
   return (int)cudaGetLastError();
 }
 
+template <bool GIVEN>
+int quantize_rows(const __nv_bfloat16* x, int8_t* xq, float* x_scale, int M,
+                  int K, cudaStream_t st) {
+  if (K <= 1024 * 2)
+    int8_quantize_rows_kernel<2, GIVEN><<<M, 128, 0, st>>>(x, xq, x_scale, K);
+  else if (K <= 1024 * 6)
+    int8_quantize_rows_kernel<6, GIVEN><<<M, 128, 0, st>>>(x, xq, x_scale, K);
+  else
+    int8_quantize_rows_kernel<0, GIVEN><<<M, 128, 0, st>>>(x, xq, x_scale, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes (echo_tts_torch/ops/int8_matmul.py).
@@ -320,13 +371,7 @@ extern "C" int echo_int8_matmul(const void* x, const void* w,
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
   int8_t* xqb = reinterpret_cast<int8_t*>(xq);
   float* xsb = reinterpret_cast<float*>(x_scale);
-  if (K <= 1024 * 2)
-    int8_quantize_rows_kernel<2><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
-  else if (K <= 1024 * 6)
-    int8_quantize_rows_kernel<6><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
-  else
-    int8_quantize_rows_kernel<0><<<M, 128, 0, st>>>(xb, xqb, xsb, K);
-  const int rc = (int)cudaGetLastError();
+  const int rc = quantize_rows<false>(xb, xqb, xsb, M, K, st);
   if (rc) return rc;
   const float* xs = reinterpret_cast<const float*>(x_scale);
   const float* ws = reinterpret_cast<const float*>(w_scale);
@@ -337,4 +382,23 @@ extern "C" int echo_int8_matmul(const void* x, const void* w,
   return out_bf16
       ? launch_gemm<128, __nv_bfloat16>(xq, w, xs, ws, out, M, N, K, st)
       : launch_gemm<128, float>(xq, w, xs, ws, out, M, N, K, st);
+}
+
+// The row-parallel instance: x (M, K) bf16 quantized with the given row
+// scales x_scale (M,) fp32 into the scratch xq (M, K) int8, then out (M, N)
+// int32 = xq @ w^T, not rescaled.  The same layouts and limits as above.
+extern "C" int echo_int8_matmul_partial(const void* x, const void* w,
+                                        const void* x_scale, void* out,
+                                        void* xq, int M, int N, int K, int bn,
+                                        void* stream) {
+  if (M < 1 || N < 8 || K < 16 || N % 8 || K % 16 || (bn != 128 && bn != 256))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int rc = quantize_rows<true>(
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<int8_t*>(xq),
+      const_cast<float*>(reinterpret_cast<const float*>(x_scale)), M, K, st);
+  if (rc) return rc;
+  return bn == 256
+      ? launch_gemm<256, int>(xq, w, nullptr, nullptr, out, M, N, K, st)
+      : launch_gemm<128, int>(xq, w, nullptr, nullptr, out, M, N, K, st);
 }

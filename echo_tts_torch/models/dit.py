@@ -26,6 +26,10 @@ segment goes first in the static K/V: [latent, text, speaker].
 checkpointing (`remat`); `trainable_copy` gives the trainable modules
 that training updates, leaving the frozen model that serving loads as
 it is.
+
+`mesh=` (parallel/mesh.py) runs the encoders, the prefill and both
+forwards tensor-parallel on a model that shard_params has cut to its
+rank's heads and hidden units; every path with mesh=None is unchanged.
 """
 from __future__ import annotations
 
@@ -43,11 +47,13 @@ from ..config import EchoDiTConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
 from ..ops.embeddings import get_timestep_embedding
-from ..ops.joint_attention import fused_joint_attention
+from ..ops.joint_attention import fused_joint_attention, shardable
 from ..ops.norms import LowRankAdaLN, low_rank_adaln, rms_norm
 from ..ops.quant import kv_is_quantized
 from ..ops.rope import (apply_rotary_emb, apply_rotary_emb_half_heads,
                         freqs_tensor)
+from ..parallel.mesh import (copy_to_model, is_sharded, mesh_coords,
+                             row_parallel)
 
 KV = Tuple[torch.Tensor, torch.Tensor]  # (L, B, S, H, Dh) each
 
@@ -165,39 +171,52 @@ class EchoDiT(nn.Module):
 # Shared blocks
 # ---------------------------------------------------------------------------
 
-def _mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+# Under a mesh (parallel/mesh.py) a sharded module holds its rank's heads
+# and hidden units: head counts are read from the QK-norms' (H, Dh)
+# weights, the replicated input of the column-parallel projections goes
+# through copy_to_model, and row-parallel outputs through row_parallel.
+# With mesh=None, or a module left whole, both are the identity.
+
+def _col_input(x: torch.Tensor, mod: nn.Module, mesh) -> torch.Tensor:
+    return copy_to_model(x, mesh) if mesh is not None and is_sharded(mod) else x
+
+
+def _mlp(p: MLP, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """SwiGLU MLP (reference: model.py:296-308)."""
-    return p.w2(F.silu(p.w1(x)) * p.w3(x))
+    x = _col_input(x, p.w1, mesh)
+    return row_parallel(p.w2, F.silu(p.w1(x)) * p.w3(x), mesh)
 
 
 def _self_attention(p: SelfAttention, x: torch.Tensor,
                     mask: Optional[torch.Tensor], freqs: torch.Tensor, *,
-                    num_heads: int, is_causal: bool, eps: float) -> torch.Tensor:
+                    is_causal: bool, eps: float, mesh=None) -> torch.Tensor:
     """Encoder self-attention with sigmoid output gate
     (reference: model.py:106-161)."""
-    b, s, d = x.shape
-    q = p.wq(x).reshape(b, s, num_heads, -1)
-    k = p.wk(x).reshape(b, s, num_heads, -1)
-    v = p.wv(x).reshape(b, s, num_heads, -1)
+    b, s, _ = x.shape
+    heads = p.q_norm.weight.shape[0]
+    x = _col_input(x, p.wq, mesh)
+    q = p.wq(x).reshape(b, s, heads, -1)
+    k = p.wk(x).reshape(b, s, heads, -1)
+    v = p.wv(x).reshape(b, s, heads, -1)
     gate = p.gate(x)
     q = rms_norm(q, p.q_norm.weight, eps)
     k = rms_norm(k, p.k_norm.weight, eps)
     q = apply_rotary_emb(q, freqs[:s])
     k = apply_rotary_emb(k, freqs[:s])
     attn_mask = mask[:, None, None, :] if mask is not None else None
-    out = sdpa(q, k, v, mask=attn_mask, is_causal=is_causal).reshape(b, s, d)
-    return p.wo(out * torch.sigmoid(gate))
+    out = sdpa(q, k, v, mask=attn_mask, is_causal=is_causal).reshape(b, s, -1)
+    return row_parallel(p.wo, out * torch.sigmoid(gate), mesh)
 
 
 def _encoder_blocks(blocks: nn.ModuleList, x: torch.Tensor,
                     mask: Optional[torch.Tensor], freqs: torch.Tensor, *,
-                    num_heads: int, is_causal: bool, eps: float) -> torch.Tensor:
+                    is_causal: bool, eps: float, mesh=None) -> torch.Tensor:
     """Pre-RMSNorm residual blocks (reference: model.py:311-339)."""
     for blk in blocks:
         x = x + _self_attention(
             blk.attention, rms_norm(x, blk.attention_norm.weight, eps), mask,
-            freqs, num_heads=num_heads, is_causal=is_causal, eps=eps)
-        x = x + _mlp(blk.mlp, rms_norm(x, blk.mlp_norm.weight, eps))
+            freqs, is_causal=is_causal, eps=eps, mesh=mesh)
+        x = x + _mlp(blk.mlp, rms_norm(x, blk.mlp_norm.weight, eps), mesh)
     return x
 
 
@@ -206,20 +225,19 @@ def _encoder_blocks(blocks: nn.ModuleList, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def text_encoder(model: EchoDiT, input_ids: torch.Tensor,
-                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 mask: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """Byte-level text encoder, non-causal blocks (model.py:392-427)."""
     cfg = model.cfg
     p = model.text_encoder
     x = p.text_embedding(input_ids.long())
     freqs = freqs_tensor(cfg.text_head_dim, input_ids.shape[1], x.device)
-    return _encoder_blocks(p.blocks, x, mask, freqs,
-                           num_heads=cfg.text_num_heads, is_causal=False,
-                           eps=cfg.norm_eps)
+    return _encoder_blocks(p.blocks, x, mask, freqs, is_causal=False,
+                           eps=cfg.norm_eps, mesh=mesh)
 
 
-def _patch_encoder(p: PatchEncoder, cfg: EchoDiTConfig,
-                   latent: torch.Tensor) -> torch.Tensor:
-    """Patchify + causal blocks (model.py:429-469)."""
+def patchify(p: PatchEncoder, cfg: EchoDiTConfig,
+             latent: torch.Tensor) -> torch.Tensor:
+    """(B, S, latent) -> the patch encoder's (B, S / patch, D) input."""
     b, s, d = latent.shape
     ps = cfg.speaker_patch_size
     if s % ps != 0:
@@ -227,39 +245,53 @@ def _patch_encoder(p: PatchEncoder, cfg: EchoDiTConfig,
             f"latent length {s} must be divisible by speaker_patch_size {ps}; "
             "crop with get_speaker_latent_and_mask (divis_by_patch_size)")
     x = p.in_proj(latent.reshape(b, s // ps, d * ps))
-    x = x / 6.0  # activation-dynamics scale (reference: model.py:462)
+    return x / 6.0  # activation-dynamics scale (reference: model.py:462)
+
+
+def _patch_encoder(p: PatchEncoder, cfg: EchoDiTConfig,
+                   latent: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Patchify + causal blocks (model.py:429-469)."""
+    x = patchify(p, cfg, latent)
     freqs = freqs_tensor(cfg.speaker_head_dim, x.shape[1], x.device)
-    return _encoder_blocks(p.blocks, x, None, freqs,
-                           num_heads=cfg.speaker_num_heads, is_causal=True,
-                           eps=cfg.norm_eps)
+    return _encoder_blocks(p.blocks, x, None, freqs, is_causal=True,
+                           eps=cfg.norm_eps, mesh=mesh)
 
 
-def _stacked_kv(model: EchoDiT, state: torch.Tensor, which: str) -> KV:
+def _stacked_kv(model: EchoDiT, state: torch.Tensor, which: str,
+                mesh=None) -> KV:
     """Project encoder state through every layer's K/V weights; k gets the
-    layer's k_norm (model.py:270-282)."""
+    layer's k_norm (model.py:270-282).  Under a mesh, the rank's heads."""
     cfg = model.cfg
     b, s, _ = state.shape
     ks, vs = [], []
+    state = _col_input(state, getattr(model.blocks[0].attention, f"wk_{which}"),
+                       mesh)
     for blk in model.blocks:
         a = blk.attention
-        k = getattr(a, f"wk_{which}")(state).reshape(b, s, cfg.num_heads, -1)
-        v = getattr(a, f"wv_{which}")(state).reshape(b, s, cfg.num_heads, -1)
+        heads = a.k_norm.weight.shape[0]
+        k = getattr(a, f"wk_{which}")(state).reshape(b, s, heads, -1)
+        v = getattr(a, f"wv_{which}")(state).reshape(b, s, heads, -1)
         ks.append(rms_norm(k, a.k_norm.weight, cfg.norm_eps))
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)
 
 
 def get_kv_cache_text(model: EchoDiT, text_input_ids: torch.Tensor,
-                      text_mask: Optional[torch.Tensor]) -> KV:
-    state = text_encoder(model, text_input_ids, text_mask)
+                      text_mask: Optional[torch.Tensor], mesh=None) -> KV:
+    """The text segment's static K/V (L, B, T, H, Dh); under a mesh, the
+    rank's rows (as given) and heads."""
+    state = text_encoder(model, text_input_ids, text_mask, mesh)
     state = rms_norm(state, model.text_norm.weight, model.cfg.norm_eps)
-    return _stacked_kv(model, state, "text")
+    return _stacked_kv(model, state, "text", mesh)
 
 
-def get_kv_cache_speaker(model: EchoDiT, speaker_latent: torch.Tensor) -> KV:
-    state = _patch_encoder(model.speaker_encoder, model.cfg, speaker_latent)
+def get_kv_cache_speaker(model: EchoDiT, speaker_latent: torch.Tensor,
+                         mesh=None) -> KV:
+    """The speaker segment's static K/V; under a mesh, as the text's."""
+    state = _patch_encoder(model.speaker_encoder, model.cfg, speaker_latent,
+                           mesh)
     state = rms_norm(state, model.speaker_norm.weight, model.cfg.norm_eps)
-    return _stacked_kv(model, state, "speaker")
+    return _stacked_kv(model, state, "speaker", mesh)
 
 
 def get_kv_cache_latent(model: EchoDiT, prefix_latent: torch.Tensor) -> KV:
@@ -415,41 +447,68 @@ def _joint_attention_static(p: JointAttention, x: torch.Tensor,
                             col_scale: torch.Tensor, freqs_q: torch.Tensor,
                             k_static: torch.Tensor, v_static: torch.Tensor, *,
                             num_heads: int, eps: float,
-                            kv_scales=None) -> torch.Tensor:
+                            kv_scales=None, mesh=None) -> torch.Tensor:
     """Joint attention over [self | pre-concatenated static KV]
     (dit.py:596-682); the speaker-KV scale is a per-column multiplier of
     the static logits (K side) and weights (V side).  int8 static K/V come
     with kv_scales ((B, T, H), (B, T, H)) fp32, which the kernel folds into
-    those multipliers."""
-    gb, s, d = x.shape
-    dh = d // num_heads
-    q = p.wq(x).reshape(gb, s, num_heads, dh)
-    k_self = p.wk(x).reshape(gb, s, num_heads, dh)
-    v_self = p.wv(x).reshape(gb, s, num_heads, dh)
+    those multipliers.  Under a mesh the layer holds num_heads / tp heads
+    (the static K/V the same heads): kernel A runs on them as they are,
+    and RoPE reaches the shard's heads in the first half of all of them."""
+    gb, s, _ = x.shape
+    heads, dh = p.q_norm.weight.shape
+    offset = 0
+    if mesh is not None and is_sharded(p.wq):
+        offset = mesh_coords(mesh).model * heads
+        x = copy_to_model(x, mesh)
+    q = p.wq(x).reshape(gb, s, heads, dh)
+    k_self = p.wk(x).reshape(gb, s, heads, dh)
+    v_self = p.wv(x).reshape(gb, s, heads, dh)
     gate = p.gate(x)
     q = rms_norm(q, p.q_norm.weight, eps)
     k_self = rms_norm(k_self, p.k_norm.weight, eps)
-    q = apply_rotary_emb_half_heads(q, freqs_q)
-    k_self = apply_rotary_emb_half_heads(k_self, freqs_q)
+    q = apply_rotary_emb_half_heads(q, freqs_q, offset, num_heads)
+    k_self = apply_rotary_emb_half_heads(k_self, freqs_q, offset, num_heads)
     out = fused_joint_attention(q, k_self, v_self, k_static, v_static,
                                 static_mask, col_scale,
                                 sm_scale=1.0 / (dh ** 0.5), kv_scales=kv_scales)
-    return p.wo(out.reshape(gb, s, d) * torch.sigmoid(gate))
+    return row_parallel(p.wo, out.reshape(gb, s, -1) * torch.sigmoid(gate),
+                        mesh)
 
 
 def _dit_layer(blk: DiTBlock, h: torch.Tensor, cond: torch.Tensor,
                freqs_q: torch.Tensor, static_mask: torch.Tensor,
                col_scale: Optional[torch.Tensor], k_st: torch.Tensor,
                v_st: torch.Tensor, kv_scales=None, *,
-               cfg: EchoDiTConfig) -> torch.Tensor:
+               cfg: EchoDiTConfig, mesh=None) -> torch.Tensor:
     """One DiT block: AdaLN, joint attention over [self | static K/V],
     AdaLN, SwiGLU MLP, each behind its tanh gate (model.py:526-561)."""
     h_norm, gate = low_rank_adaln(h, cond, blk.attention_adaln, cfg.norm_eps)
     h = h + gate * _joint_attention_static(
         blk.attention, h_norm, static_mask, col_scale, freqs_q, k_st, v_st,
-        num_heads=cfg.num_heads, eps=cfg.norm_eps, kv_scales=kv_scales)
+        num_heads=cfg.num_heads, eps=cfg.norm_eps, kv_scales=kv_scales,
+        mesh=mesh)
     h_norm, gate = low_rank_adaln(h, cond, blk.mlp_adaln, cfg.norm_eps)
-    return h + gate * _mlp(blk.mlp, h_norm)
+    return h + gate * _mlp(blk.mlp, h_norm, mesh)
+
+
+def check_mesh(model: EchoDiT, mesh, kv_batch: int) -> None:
+    """The rule of the JAX package's _select_attention_impl under a mesh
+    (dit.py:446-461), where kernel A is the only attention on the card:
+    the DiT's heads must divide the model axis (`shardable`: the KV batch,
+    kv_batch rows a rank, divides the data axis by construction), and the
+    model must hold its rank's heads (shard_params)."""
+    dp, tp = mesh_coords(mesh)[:2]
+    heads = model.cfg.num_heads
+    if not shardable(mesh, kv_batch * dp, heads):
+        raise ValueError(
+            f"joint attention under a mesh needs num_heads % model == 0; got "
+            f"heads={heads}, mesh (dp, tp)=({dp}, {tp})")
+    local = model.blocks[0].attention.q_norm.weight.shape[0]
+    if local * tp != heads:
+        raise ValueError(f"the DiT holds {local} of {heads} heads under a "
+                         f"model axis of {tp}: shard it (parallel.mesh."
+                         "shard_params) before running it on the mesh")
 
 
 def _layer_col_scales(speaker_scale_by_layer: Optional[torch.Tensor],
@@ -520,7 +579,8 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
                        spk_cols: torch.Tensor,
                        static_mask: torch.Tensor, *, start_pos: int = 0,
                        speaker_scale_by_layer: Optional[torch.Tensor] = None,
-                       remat: Union[bool, str] = False) -> torch.Tensor:
+                       remat: Union[bool, str] = False,
+                       mesh=None) -> torch.Tensor:
     """Denoiser forward over the pre-concatenated static KV (dit.py:685).
 
     x (GB, S, latent) and t (GB,) in the model dtype; kv_static the (k, v)
@@ -532,15 +592,22 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
     forward, kernel A included); "dots" saves the weight products;
     "dots_all" the weight products and the attention; "attn" only the
     attention output.  int8 K/V serve and never train, so they take no
-    remat.  Returns float32 (model.py:604)."""
+    remat.  Under a (data, model) mesh (parallel/mesh.py) x, t, the static
+    K/V and the mask are the rank's rows, the K/V its heads, and the model
+    its shard; every rank of a model group runs the same layers, so the
+    all-reduces (recomputed under remat) meet in the same order.  Returns
+    float32 (model.py:604)."""
     mode = remat_mode(remat)
     kv_q8 = kv_is_quantized(kv_static)
     if kv_q8 and mode != "none":
         raise ValueError(f"remat={remat!r} with int8 static K/V: the int8 "
                          "form serves and never trains")
+    if mesh is not None:
+        check_mesh(model, mesh,
+                   (kv_static["k8"] if kv_q8 else kv_static[0]).shape[1])
     h, cond, freqs_q = _embed(model, x, t, start_pos)
     col_scales = _layer_col_scales(speaker_scale_by_layer, spk_cols)
-    layer = functools.partial(_dit_layer, cfg=model.cfg)
+    layer = functools.partial(_dit_layer, cfg=model.cfg, mesh=mesh)
     for li, blk in enumerate(model.blocks):
         col_scale = None if col_scales is None else col_scales[li]
         if kv_q8:
@@ -566,7 +633,7 @@ def dit_forward(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
                 kv_latent: Optional[KV] = None,
                 latent_mask: Optional[torch.Tensor] = None,
                 speaker_scale_by_layer: Optional[torch.Tensor] = None,
-                remat: Union[bool, str] = False) -> torch.Tensor:
+                remat: Union[bool, str] = False, mesh=None) -> torch.Tensor:
     """One denoiser forward over [self, latent prefix?, text, speaker]
     (dit.py:767-882; reference: model.py:563-604): the form training
     differentiates.
@@ -578,15 +645,15 @@ def dit_forward(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
     speaker_scale_by_layer (L,) multiplies the speaker K and V of each
     layer (kernel A's column scale).  The segments are concatenated once,
     as the JAX package's kernel branch does (dit.py:516-539), and
-    dit_forward_static runs the layers, with remat as it takes it.
-    Returns float32."""
+    dit_forward_static runs the layers, with remat and mesh as it takes
+    them.  Returns float32."""
     static_mask = static_attention_mask(model.cfg, text_mask, speaker_mask,
                                         latent_mask)
     kv_static, spk_cols = concat_static_kv(kv_text, kv_speaker, kv_latent)
     return dit_forward_static(model, x, t, kv_static, spk_cols, static_mask,
                               start_pos=start_pos,
                               speaker_scale_by_layer=speaker_scale_by_layer,
-                              remat=remat)
+                              remat=remat, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ is output channel n; the JAX package stores (K, N)), w_scale (N,) fp32.
 version for CPU tensors and launches the kernel for CUDA tensors (or
 raises); it never falls back.  One call counts one launch, though the card
 runs the pre-pass and the product.
+
+`int8_matmul_partial` is kernel C's row-parallel instance, for a K-slice
+of a tensor-parallel layer (parallel/mesh.py `row_parallel`): the row
+scale is given (taken over the whole K), and the int32 sums come out
+unscaled, to be summed over the slices and rescaled once (`int8_rescale`),
+which gives the unsharded product exactly.  Its plain version is
+`int8_matmul_partial_plain`; its launches count in
+`int8_matmul_partial.launches`.
 """
 from __future__ import annotations
 
@@ -56,6 +64,25 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
     xq, x_scale = quantize_last(x, 127.0)
     acc = xq.double() @ w8.double().t()
     return (acc.float() * x_scale[..., None] * w_scale.float()).to(out_dtype)
+
+
+def int8_matmul_partial_plain(x: torch.Tensor, w8: torch.Tensor,
+                              x_scale: torch.Tensor) -> torch.Tensor:
+    """The row-parallel instance's function: x (..., K) quantized with the
+    given row scales x_scale (...,) fp32 (clip(round(x / x_scale)), the
+    same IEEE division as `quantize_last`), then xq @ w8^T as int32 sums,
+    (..., N), exact (float64 accumulation, as `int8_matmul_plain`)."""
+    xq = torch.clamp(torch.round(x.float() / x_scale.float()[..., None]),
+                     -127.0, 127.0)
+    return (xq.double() @ w8.double().t()).to(torch.int32)
+
+
+def int8_rescale(acc: torch.Tensor, x_scale: torch.Tensor,
+                 w_scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """f32(acc) * x_scale * w_scale in that order, in out_dtype: the
+    epilogue of kernel C (and of `int8_matmul_plain`)."""
+    return (acc.float() * x_scale.float()[..., None]
+            * w_scale.float()).to(out_dtype)
 
 
 def supported(m: int, k: int, n: int) -> bool:
@@ -153,3 +180,62 @@ def int8_matmul_fused(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
 
 
 int8_matmul_fused.launches = 0
+
+
+_ARGTYPES_PARTIAL = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+
+
+def _launch_partial(x2d: torch.Tensor, w8: torch.Tensor,
+                    x_scale: torch.Tensor) -> torch.Tensor:
+    if x2d.dtype != torch.bfloat16:
+        raise TypeError(f"the int8 matmul kernel takes bf16 x; got {x2d.dtype}")
+    dev = x2d.device
+    if w8.device != dev or x_scale.device != dev:
+        raise ValueError("int8 matmul inputs on different devices")
+    (m, k), n = x2d.shape, w8.shape[0]
+    x2d, w8 = _aligned(x2d), _aligned(w8)
+    x_scale = x_scale.float().contiguous()
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    fn = cuda_build.entry("int8_matmul", "echo_int8_matmul_partial",
+                          _ARGTYPES_PARTIAL)
+    rc = fn(x2d.data_ptr(), w8.data_ptr(), x_scale.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), m, n, k, _tile_plan(m, k, n)[1],
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "int8_matmul_partial")
+    int8_matmul_partial.launches += 1
+    return out
+
+
+def int8_matmul_partial(x: torch.Tensor, w8: torch.Tensor,
+                        x_scale: torch.Tensor) -> torch.Tensor:
+    """The row-parallel instance of kernel C: x (..., K) bf16 quantized
+    with the given row scales x_scale (...,) fp32, times w8 (N, K) int8,
+    as int32 sums (..., N), not rescaled.  Shapes as int8_matmul_fused
+    takes them; CPU tensors run `int8_matmul_partial_plain`, CUDA tensors
+    launch the kernel and count it in `int8_matmul_partial.launches`.  No
+    gradient."""
+    k = x.shape[-1]
+    if w8.dtype != torch.int8 or w8.ndim != 2 or w8.shape[1] != k:
+        raise ValueError(f"w8 must be int8 (N, {k}); got {w8.dtype} "
+                         f"{tuple(w8.shape)}")
+    n = w8.shape[0]
+    if x_scale.shape != x.shape[:-1]:
+        raise ValueError(f"x_scale {tuple(x_scale.shape)} must be "
+                         f"{tuple(x.shape[:-1])}")
+    m = x.numel() // k if k else 0
+    if not supported(m, k, n):
+        raise ValueError(f"unsupported W8A8 kernel shape m={m} k={k} n={n}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("the W8A8 matmul has no gradient; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    if x.device.type == "cpu":
+        return int8_matmul_partial_plain(x, w8, x_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = _launch_partial(x.reshape(m, k), w8, x_scale.reshape(m))
+    return out.reshape(*x.shape[:-1], n)
+
+
+int8_matmul_partial.launches = 0

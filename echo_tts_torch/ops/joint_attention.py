@@ -31,6 +31,11 @@ gradient: it raises.  Calls without grad launch the kernel directly:
 through the Function a call costs the host 10-23 us more (chip_smoke.py's
 paired count on an H100 80GB HBM3 at 700 W), on a sampler pass of 960
 calls that the host bounds.
+
+Under a (data, model) mesh the kernel runs per shard with no collective:
+a sharded DiT holds its rank's heads and rows and calls
+`fused_joint_attention` on them; `fused_joint_attention_sharded` cuts a
+shard out of whole inputs (joint_attention.py:524-596).
 """
 from __future__ import annotations
 
@@ -282,3 +287,64 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
 
 fused_joint_attention.launches = 0
 fused_joint_attention.launches_kv8 = 0
+
+
+# ---------------------------------------------------------------------------
+# Per shard of a (data, model) mesh (joint_attention.py:524-596)
+# ---------------------------------------------------------------------------
+
+def shardable(mesh, kv_batch: int, num_heads: int) -> bool:
+    """Whether kernel A splits evenly over `mesh` (parallel.mesh): the KV
+    batch divides the data axis and the heads the model axis."""
+    from ..parallel.mesh import mesh_coords
+    c = mesh_coords(mesh)
+    return kv_batch % c.dp == 0 and num_heads % c.tp == 0
+
+
+def shard_query_rows(gb: int, kv_batch: int, dp: int, data: int
+                     ) -> torch.Tensor:
+    """The query rows of data coordinate `data`: {g * B + b : b in its KV
+    rows} for every CFG branch g, in G-major order.  Contiguous GB / dp
+    rows would split the branches from their KV row, and the kernel's
+    b % B broadcast would read another request's static K/V."""
+    per = kv_batch // dp
+    rows = torch.arange(data * per, (data + 1) * per)
+    return (torch.arange(gb // kv_batch)[:, None] * kv_batch
+            + rows[None, :]).reshape(-1)
+
+
+def fused_joint_attention_sharded(
+        q: torch.Tensor, k_self: torch.Tensor, v_self: torch.Tensor,
+        k_static: torch.Tensor, v_static: torch.Tensor,
+        static_mask: torch.Tensor, col_scale: Optional[torch.Tensor] = None, *,
+        sm_scale: float, mesh,
+        kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> torch.Tensor:
+    """Kernel A on this rank's shard of whole (unsharded) inputs: the KV
+    rows of its data coordinate with their query rows in every CFG branch
+    (`shard_query_rows`), and the heads of its model coordinate; no
+    collective (the kernel is parallel over its (row, head) grid).  Returns
+    the shard's output, (G * B / dp, S, H / tp, Dh), which equals those rows
+    and heads of the unsharded call.  `mesh` is a DeviceMesh or a
+    parallel.mesh.ShardCoords (one process laying out each shard in turn).
+    A model that already holds its shard (models/dit.py under a mesh) calls
+    fused_joint_attention on it directly."""
+    from ..parallel.mesh import kv_cache_spec, mesh_coords
+    gb, _, h, _ = q.shape
+    b = k_static.shape[0]
+    if not shardable(mesh, b, h):
+        raise ValueError(f"KV batch {b} and {h} heads do not split over "
+                         f"(dp, tp) = {mesh_coords(mesh)[:2]}")
+    c = mesh_coords(mesh)
+    kv_rows, heads = kv_cache_spec(mesh, b, h)
+    rows = shard_query_rows(gb, b, c.dp, c.data).to(q.device)
+
+    def qs(x):
+        return x.index_select(0, rows)[:, :, heads]
+
+    scales = (None if kv_scales is None
+              else tuple(x[kv_rows, :, heads] for x in kv_scales))
+    return fused_joint_attention(
+        qs(q), qs(k_self), qs(v_self), k_static[kv_rows, :, heads],
+        v_static[kv_rows, :, heads], static_mask.index_select(0, rows),
+        col_scale, sm_scale=sm_scale, kv_scales=scales)

@@ -25,6 +25,15 @@ compatibility) is here too, and quantization-aware training: `qat_dot`
 (W8A8 fake quantization in fp32 with straight-through gradients) and
 `qat_tag_dit_params`, a view of the DiT whose hot-loop linears run
 through it while sharing the plain model's parameters.
+
+Under tensor parallelism (parallel/mesh.py) a row-parallel layer holds a
+K-slice of its weight: `int8_dot_row_parallel` and `qat_dot_row_parallel`
+take the activation row's abs-max over the whole K (an all-reduce MAX
+over the model group, as GSPMD takes it over the sharded K in the JAX
+package), so that every slice quantizes as the unsharded product does.
+The W8A8 slices' int32 sums are then all-reduced and rescaled once, which
+equals the unsharded product exactly; the per-output-channel weight
+scale, taken over the whole K before sharding, stays whole.
 """
 from __future__ import annotations
 
@@ -32,9 +41,12 @@ import copy
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from .int8_matmul import int8_matmul_fused, quantize_last
+from ..parallel.mesh import TP_ATTR
+from .int8_matmul import (int8_matmul_fused, int8_matmul_partial,
+                          int8_rescale, quantize_last)
 
 # The hot-loop weights of each DiT block: applied to (G*B, S, .) rows on
 # every sampler step (ops/quant.py:116-120 of the JAX package).
@@ -65,6 +77,30 @@ def dequantize_weight(q8: torch.Tensor, scale: torch.Tensor,
 # CPU tensors: the JAX package's int8_dot and int8_matmul_fused compute one
 # function, so the port has one (ops/int8_matmul.py).
 int8_dot = int8_matmul_fused
+
+
+def _global_scale127(a: torch.Tensor, group, keepdim: bool = False
+                     ) -> torch.Tensor:
+    """max(abs-max over the last axis of every slice in `group`, 1e-12) /
+    127, fp32, detached (a true division, as quantize_last's)."""
+    amax = a.detach().float().abs().amax(-1, keepdim=keepdim)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax.clamp_min(1e-12) / torch.full_like(amax, 127.0)
+
+
+def int8_dot_row_parallel(x: torch.Tensor, w8: torch.Tensor,
+                          w_scale: torch.Tensor, group,
+                          out_dtype=None) -> torch.Tensor:
+    """int8_dot of a row-parallel layer: x (..., K / tp) and w8 (N, K / tp)
+    are this rank's K-slices, w_scale (N,) whole.  The row scale comes from
+    the whole K, kernel C's row-parallel instance gives the slice's int32
+    sums, their all-reduce the whole product's, and one rescale the
+    result: the unsharded int8_dot's, bit for bit."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    x_scale = _global_scale127(x, group)
+    acc = int8_matmul_partial(x, w8, x_scale)
+    dist.all_reduce(acc, group=group)
+    return int8_rescale(acc, x_scale, w_scale, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +157,10 @@ class Int8Linear(nn.Module):
     def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
         if linear.bias is not None:
             raise ValueError("only bias-free linears are quantized")
+        if hasattr(linear, TP_ATTR):
+            raise ValueError("quantize the DiT before sharding it: a "
+                             "row-parallel slice's channel scales would "
+                             "cover its K-slice only")
         return cls(*cls.quantize(linear.weight))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -254,25 +294,36 @@ def _scale127(a: torch.Tensor) -> torch.Tensor:
     return amax / torch.full_like(amax, 127.0)
 
 
-def qat_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def qat_dot(x: torch.Tensor, w: torch.Tensor, *,
+            x_scale: torch.Tensor = None,
+            w_scale: torch.Tensor = None) -> torch.Tensor:
     """x @ w^T, w (N, K) as nn.Linear holds it, with W8A8 fake
     quantization on both operands; int8_dot's values up to fp32 against
     int32 accumulation; the result in x's dtype.  d/dw is the plain
-    product's gradient inside the clip range (straight through)."""
+    product's gradient inside the clip range (straight through).  The
+    scales ((..., 1) and (N, 1) fp32) are taken here unless given."""
     xf = x.float()
-    x_scale = _scale127(xf)
+    x_scale = _scale127(xf) if x_scale is None else x_scale
     xq = _RoundClipSTE.apply(xf / x_scale)
     wf = w.float()
-    w_scale = _scale127(wf)
+    w_scale = _scale127(wf) if w_scale is None else w_scale
     wq = _RoundClipSTE.apply(wf / w_scale)
     out = torch.matmul(xq, wq.transpose(-1, -2)) * x_scale * w_scale[..., 0]
     return out.to(x.dtype)
 
 
+def qat_dot_row_parallel(x: torch.Tensor, w: torch.Tensor,
+                         group) -> torch.Tensor:
+    """qat_dot of a row-parallel layer's K-slices, both scales taken over
+    the whole K; the caller sums the partial products over `group`."""
+    return qat_dot(x, w, x_scale=_global_scale127(x, group, keepdim=True),
+                   w_scale=_global_scale127(w, group, keepdim=True))
+
+
 class QATLinear(nn.Module):
     """A bias-free linear whose forward is qat_dot; it holds the plain
     linear's weight Parameter itself, so an optimizer over the plain model
-    updates what it reads."""
+    updates what it reads, and its tensor-parallel mark."""
 
     def __init__(self, linear: nn.Module):
         super().__init__()
@@ -280,6 +331,8 @@ class QATLinear(nn.Module):
             raise TypeError(f"QAT takes bias-free nn.Linear leaves, got "
                             f"{type(linear).__name__}")
         self.weight = linear.weight
+        if hasattr(linear, TP_ATTR):
+            setattr(self, TP_ATTR, getattr(linear, TP_ATTR))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return qat_dot(x, self.weight)

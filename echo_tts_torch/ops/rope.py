@@ -8,6 +8,7 @@ computed in float32 and cast back to the input dtype.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,8 +53,18 @@ def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
     return torch.stack([out_even, out_odd], dim=-1).reshape(x.shape).to(dtype)
 
 
-def apply_rotary_emb_half_heads(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
-    """RoPE on the first half of the HEADS only (model.py:199-202)."""
+def apply_rotary_emb_half_heads(x: torch.Tensor, freqs_cis: torch.Tensor,
+                                head_offset: int = 0,
+                                num_heads: Optional[int] = None) -> torch.Tensor:
+    """RoPE on the first half of the HEADS only (model.py:199-202).  A
+    tensor-parallel shard holds heads [head_offset, head_offset + H) of
+    num_heads: it rotates those of its heads that lie in the first half of
+    all of them."""
     h = x.shape[-2]
-    x1, x2 = x[..., : h // 2, :], x[..., h // 2:, :]
+    n = min(max((num_heads or h) // 2 - head_offset, 0), h)
+    if n == 0:
+        return x
+    if n == h:
+        return apply_rotary_emb(x, freqs_cis)
+    x1, x2 = x[..., :n, :], x[..., n:, :]
     return torch.cat([apply_rotary_emb(x1, freqs_cis), x2], dim=-2)

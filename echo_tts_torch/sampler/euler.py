@@ -6,6 +6,12 @@ before the loop (build_step_plan); the steps run as a Python loop in which
 CFG steps run one batch-3B forward (branches [cond, uncond_text,
 uncond_speaker], G-major over the batch-B static KV) and the other steps a
 batch-B forward, as the reference's dynamic `has_cfg` branch does.
+
+Under a (data, model) mesh (`mesh=`, parallel/): the model is the rank's
+tensor-parallel shard (parallel.inference.shard_models) and the request
+tensors are the rank's rows (parallel.inference.place_request); the CFG
+batch is built from those rows, so it stays G-major over the rank's own
+static K/V, and the result is the rank's rows of the latents.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from ..config import EchoDiTConfig
 from ..models import dit
 from ..ops.quant import quantize_kv_int8
+from ..parallel.mesh import mesh_coords
 
 
 class StepPlan(NamedTuple):
@@ -114,7 +121,7 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                       mask_cfg: torch.Tensor, mask_plain: torch.Tensor, *,
                       cfg_scale_text: float, cfg_scale_speaker: float,
                       speaker_kv_max_layers: Optional[int], dtype,
-                      start_pos: int = 0) -> torch.Tensor:
+                      start_pos: int = 0, mesh=None) -> torch.Tensor:
     """The Euler loop over the step plan (reference loop:
     inference.py:481-515); x_t (B, S, latent) float32."""
     cfg = model.cfg
@@ -140,7 +147,8 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                             device=x_t.device).to(dtype)
             v = dit.dit_forward_static(
                 model, x3, t3, kv_static, spk_cols, mask_cfg,
-                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i])
+                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i],
+                mesh=mesh)
             v_c, v_ut, v_us = torch.chunk(v, 3, dim=0)
             v = v_c + s_text * (v_c - v_ut) + s_spk * (v_c - v_us)
         else:
@@ -148,7 +156,8 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                             device=x_t.device).to(dtype)
             v = dit.dit_forward_static(
                 model, x_t.to(dtype), t1, kv_static, spk_cols, mask_plain,
-                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i])
+                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i],
+                mesh=mesh)
         v = c1 * v + c2 * x_t
         x_t = x_t + v * dt_i
     return x_t
@@ -178,6 +187,7 @@ def sample_euler_cfg_independent_guidances(
     initial_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     kv_quant: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Latents (B, sequence_length, latent_size) float32 on the model's
     device.  Exactly one of `initial_noise` (f32) or `generator` (a
@@ -188,13 +198,21 @@ def sample_euler_cfg_independent_guidances(
     (ops.quant.quantize_kv_int8, once, before the step loop): half the
     K/V's memory and read bytes, their scales folded into the attention's
     column scales.  Opt-in and non-parity (per-token rounding), as in the
-    JAX package (euler.py:244-246)."""
+    JAX package (euler.py:244-246).
+
+    mesh: a (data, model) DeviceMesh (module docstring); the inputs and
+    the result are the rank's rows.  Over more than one data rank the
+    noise is the rank's rows of the request's, from place_request: a
+    generator here would draw another noise on every rank."""
     cfg = model.cfg
     device = next(model.parameters()).device
     batch_size = text_input_ids.shape[0]
     if initial_noise is None:
         if generator is None:
             raise ValueError("provide initial_noise or generator")
+        if mesh is not None and mesh_coords(mesh).dp > 1:
+            raise ValueError("over a data axis > 1 pass initial_noise (the "
+                             "rank's rows, parallel.inference.place_request)")
         initial_noise = torch.randn(
             (batch_size, sequence_length, cfg.latent_size),
             generator=generator, device=device, dtype=torch.float32)
@@ -210,9 +228,9 @@ def sample_euler_cfg_independent_guidances(
     speaker_mask = speaker_mask.to(device)
     # One-time prefill (reference: inference.py:464-465), in model dtype;
     # the static segments are concatenated once, outside the step loop.
-    kv_text = dit.get_kv_cache_text(model, text_input_ids, text_mask)
+    kv_text = dit.get_kv_cache_text(model, text_input_ids, text_mask, mesh)
     kv_speaker = dit.get_kv_cache_speaker(
-        model, speaker_latent.to(device=device, dtype=dtype))
+        model, speaker_latent.to(device=device, dtype=dtype), mesh)
     kv_static, spk_cols = dit.concat_static_kv(kv_text, kv_speaker)
     if kv_quant:
         kv_static = quantize_kv_int8(*kv_static)
@@ -221,4 +239,4 @@ def sample_euler_cfg_independent_guidances(
     return run_step_segments(
         model, x_t, plan, kv_static, spk_cols, mask_cfg, mask_plain,
         cfg_scale_text=cfg_scale_text, cfg_scale_speaker=cfg_scale_speaker,
-        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype)
+        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype, mesh=mesh)

@@ -25,9 +25,11 @@ boundaries go through normalize_chunk_boundaries / crossfade_chunks
 
 The models load on `ServeConfig.device` (ECHO_DEVICE, default "cuda"):
 without a card the default raises, and the CPU runs only when asked.
-The JAX handler's `jax.distributed` join in `main` waits for the
-scale-out slice, and its `--warmup-full` (the whole XLA shape manifest)
-has no counterpart: nothing here compiles per shape.
+With ECHO_COORD set, `main` first joins the world of one process per card
+(parallel/distributed.py) and each rank then serves on its own card, the
+share-nothing stance of the reference's workers.  The JAX handler's
+`--warmup-full` (the whole XLA shape manifest) has no counterpart:
+nothing here compiles per shape.
 """
 from __future__ import annotations
 
@@ -692,6 +694,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+
+    # a multi-card world: join it before the models load, so that this
+    # rank's card is the current device (parallel/distributed.py)
+    from ..parallel.distributed import initialize_from_env
+    if initialize_from_env():
+        import torch.distributed as dist
+        log.info("joined the process group: rank %d/%d (%s)",
+                 dist.get_rank(), dist.get_world_size(), dist.get_backend())
 
     cfg = load_config()
     for issue in cfg.issues:

@@ -1,4 +1,5 @@
-"""The training loop around the flow-matching step, on one card.
+"""The training loop around the flow-matching step, on one card or over a
+(data, model) mesh.
 
 Counterpart of echo_tts_tpu/train/loop.py: batches from any iterator of
 host arrays, updates, periodic checkpoints of the parameters (and of the
@@ -6,7 +7,9 @@ EMA when it is tracked) and stage timing (`data`, `step`, `checkpoint`).
 A checkpoint is a `step_XXXXXXXX/` directory holding `params.safetensors`
 (and `ema.safetensors`) under the published state-dict keys, in place of
 the JAX package's orbax trees.  Batches are assembled by train/data.py or
-by hand, as train/step.py describes.
+by hand, as train/step.py describes.  Over a mesh every rank iterates the
+same global batches and keeps its rows, and a checkpoint holds the whole
+parameters (gathered over "model"), written by rank 0 in the same layout.
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ import time
 from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models import dit
+from ..parallel.mesh import gather_params
 from ..utils.profiling import StageTimer
 from .step import (TrainState, create_train_state, make_optimizer,
                    make_train_step, place_batch)
@@ -25,20 +30,24 @@ from .step import (TrainState, create_train_state, make_optimizer,
 log = logging.getLogger("echo_tts_torch.train")
 
 
-def save_params(path: str, state: TrainState) -> str:
+def save_params(path: str, state: TrainState, mesh=None) -> str:
     """Write the state's parameters (and EMA) under
-    <path>/step_XXXXXXXX/; returns that directory."""
+    <path>/step_XXXXXXXX/; returns that directory.  Under a mesh every
+    rank gathers the whole tensors and rank 0 writes them."""
     from safetensors.torch import save_file
 
     out = os.path.join(os.path.abspath(path), f"step_{state.step:08d}")
-    os.makedirs(out, exist_ok=True)
+    writer = mesh is None or dist.get_rank() == 0
+    if writer:
+        os.makedirs(out, exist_ok=True)
     trees = [("params", state.model)]
     if state.ema is not None:
         trees.append(("ema", state.ema))
     for name, model in trees:
-        save_file({k: v.detach().contiguous()
-                   for k, v in model.state_dict().items()},
-                  os.path.join(out, f"{name}.safetensors"))
+        tensors = gather_params(model, mesh)
+        if writer:
+            save_file({k: v.detach().contiguous() for k, v in tensors.items()},
+                      os.path.join(out, f"{name}.safetensors"))
     return out
 
 
@@ -59,6 +68,7 @@ def train(
     log_every: int = 50,
     on_step: Optional[Callable[[int, float], None]] = None,
     remat: str = "attn",
+    mesh=None,
 ) -> TrainState:
     """Run `num_steps` updates of a trainable copy of `model` (which is
     left as it is); returns the final TrainState.
@@ -71,14 +81,17 @@ def train(
     package's train does not have, there so that a smoke run or a test
     can drive this loop on fixed draws and compare steps and remat modes
     on one loss.  remat: one of
-    models.dit.REMAT_MODES (see flow_matching_loss)."""
+    models.dit.REMAT_MODES (see flow_matching_loss).  mesh: a (data,
+    model) DeviceMesh; the batches are global, the state the rank's shard
+    (train/step.py)."""
     tx = make_optimizer(lr=lr, weight_decay=weight_decay,
                         warmup_steps=warmup_steps,
                         total_steps=num_steps if cosine_decay else 0)
-    state = create_train_state(model, tx, ema=ema_decay is not None)
+    state = create_train_state(model, tx, ema=ema_decay is not None,
+                               mesh=mesh)
     step_fn = make_train_step(
         tx, ema_decay=ema_decay if ema_decay is not None else 0.999,
-        remat=remat)
+        remat=remat, mesh=mesh)
     device = next(state.model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -106,6 +119,6 @@ def train(
                      (i + 1) / (time.time() - t0))
         if checkpoint_dir and (i + 1) % checkpoint_every == 0:
             with timer.stage("checkpoint"):
-                save_params(checkpoint_dir, state)
+                save_params(checkpoint_dir, state, mesh)
     log.info("training done: %s", timer.report())
     return state

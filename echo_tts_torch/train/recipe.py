@@ -22,9 +22,16 @@ The evaluation samples in the models' own dtype (the JAX package samples
 its evaluation in fp32 over bf16 parameters; here a model computes in its
 parameters' dtype).  The report (also <out_dir>/distill_report.json)
 carries the loss curve, the evaluation curve and the serving result.
+
+Over a (data, model) mesh (`mesh=`) the teacher and the student are
+sharded, each data coordinate evaluates its rows of the prompts (the MSE
+summed over the data group), rank 0 writes the shards, the gathered
+bundle and the report and runs the serving smoke, and every rank returns
+the report.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
@@ -35,14 +42,17 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SAMPLER_DEFAULTS
 from ..models import dit
 from ..pipeline.pipeline import EchoModels
+from ..parallel.inference import place_request
+from ..parallel.mesh import data_group, gather_params
 from ..pipeline.text import get_text_input_ids_and_mask
 from ..sampler.euler import sample_euler_cfg_independent_guidances
 from .data import DataConfig, iter_batches, write_shards
-from .distill import few_step_sampler_params, make_distill_step
+from .distill import few_step_sampler_params, make_distill_step, shard_teacher
 from .step import create_train_state, make_optimizer
 
 log = logging.getLogger("echo_tts_torch.train")
@@ -78,11 +88,17 @@ def eval_few_step_gap(
     num_student_steps: int,
     teacher_sampler_params: Optional[Dict] = None,
     teacher_latents: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[float, torch.Tensor]:
     """Latent MSE between the student's N-step CFG-free sample and the
     teacher's full CFG sample from the same fixed noise.  Returns (mse,
-    teacher_latents), so that the teacher's pass runs once."""
+    teacher_latents), so that the teacher's pass runs once.  Under a mesh
+    the models are the rank's shards and each data coordinate samples its
+    rows of the inputs; the MSE is the whole batch's."""
     ids, mask, spk, spk_m, noise = eval_inputs
+    if mesh is not None:
+        spk, spk_m, ids, mask, noise = place_request(mesh, spk, spk_m, ids,
+                                                     mask, noise)
     dtype = models.dtype
     if teacher_latents is None:
         p = dict(SAMPLER_DEFAULTS)
@@ -90,13 +106,34 @@ def eval_few_step_gap(
         p.update(teacher_sampler_params or {})
         teacher_latents = sample_euler_cfg_independent_guidances(
             teacher, spk, spk_m, ids, mask, sequence_length=noise.shape[1],
-            dtype=dtype, initial_noise=noise, **p)
+            dtype=dtype, initial_noise=noise, mesh=mesh, **p)
     student_latents = sample_euler_cfg_independent_guidances(
         student, spk, spk_m, ids, mask, sequence_length=noise.shape[1],
-        dtype=dtype, initial_noise=noise,
+        dtype=dtype, initial_noise=noise, mesh=mesh,
         **few_step_sampler_params(num_student_steps))
-    mse = float(torch.mean(torch.square(student_latents - teacher_latents)))
-    return mse, teacher_latents
+    sq = torch.square(student_latents - teacher_latents)
+    group = None if mesh is None else data_group(mesh)
+    if group is None:
+        return float(torch.mean(sq)), teacher_latents
+    parts = torch.stack([sq.sum(), torch.tensor(float(sq.numel()),
+                                                device=sq.device)])
+    dist.all_reduce(parts, group=group)
+    return float(parts[0] / parts[1]), teacher_latents
+
+
+def _whole_student(student: dit.EchoDiT, teacher: dit.EchoDiT,
+                   mesh) -> Optional[dit.EchoDiT]:
+    """The student as one model: itself without a mesh; under one, its
+    gathered parameters in a copy of the (whole) teacher on rank 0, None
+    on the other ranks (every rank gathers)."""
+    if mesh is None:
+        return student
+    state = gather_params(student, mesh)
+    if dist.get_rank() != 0:
+        return None
+    whole = copy.deepcopy(teacher)
+    whole.load_state_dict(state)
+    return whole
 
 
 def distill_few_step(
@@ -118,6 +155,7 @@ def distill_few_step(
     ema_decay: Optional[float] = 0.999,
     seed: int = 0,
     serve_smoke: bool = True,
+    mesh=None,
     **distill_kw,
 ) -> Dict:
     """Run the whole few-step pipeline; returns the report (also written
@@ -126,18 +164,26 @@ def distill_few_step(
     `data` is an iterable of (waveform (1, samples) or (samples,), text)
     pairs; shards go under <out_dir>/shards.  The teacher is models.dit
     (left as it is); the student's bundle lands at <out_dir>/checkpoint,
-    which serve/models.py loads directly."""
+    which serve/models.py loads directly.  mesh: a (data, model)
+    DeviceMesh (module docstring)."""
     from ..tools.checkpoint import save_checkpoint
 
     t_start = time.time()
+    writer = mesh is None or dist.get_rank() == 0
     os.makedirs(out_dir, exist_ok=True)
     data_cfg = data_cfg or DataConfig()
     eval_every = eval_every or max(1, num_steps // 4)
-    teacher = models.dit
+    whole_teacher = models.dit
+    teacher = shard_teacher(whole_teacher, mesh)
 
     # 1. data: audio -> whitened-latent shards -> batches
-    shards = write_shards(models, data, os.path.join(out_dir, "shards"),
-                          cfg=data_cfg)
+    shards = [None]
+    if writer:
+        shards[0] = write_shards(models, data,
+                                 os.path.join(out_dir, "shards"), cfg=data_cfg)
+    if mesh is not None:
+        dist.broadcast_object_list(shards, src=0)
+    shards = shards[0]
     if not shards:
         raise ValueError("no usable utterances in `data` "
                          f"(min_latents={data_cfg.min_latents})")
@@ -150,14 +196,15 @@ def distill_few_step(
     mse0, teacher_lat = eval_few_step_gap(
         models, teacher, teacher, eval_in,
         num_student_steps=num_student_steps,
-        teacher_sampler_params=teacher_sampler_params)
+        teacher_sampler_params=teacher_sampler_params, mesh=mesh)
     log.info("eval step 0: few-step-vs-teacher MSE %.6f (student == "
              "teacher: the step and guidance gap alone)", mse0)
     tx = make_optimizer(lr=lr, weight_decay=0.01)
-    state = create_train_state(teacher, tx, ema=ema_decay is not None)
+    state = create_train_state(whole_teacher, tx, ema=ema_decay is not None,
+                               mesh=mesh)
     step_fn = make_distill_step(
         tx, ema_decay=ema_decay if ema_decay is not None else 0.999,
-        num_student_steps=num_student_steps, substeps=substeps,
+        mesh=mesh, num_student_steps=num_student_steps, substeps=substeps,
         quant_aware=quant_aware,
         **{k: v for k, v in (teacher_sampler_params or {}).items()
            if k in _CFG_KEYS}, **distill_kw)
@@ -171,7 +218,7 @@ def distill_few_step(
             mse, _ = eval_few_step_gap(
                 models, teacher, state.model, eval_in,
                 num_student_steps=num_student_steps,
-                teacher_latents=teacher_lat)
+                teacher_latents=teacher_lat, mesh=mesh)
             mse_curve.append((step + 1, mse))
             log.info("eval step %d/%d: loss %.6f, eval MSE %.6f", step + 1,
                      num_steps, losses[-1], mse)
@@ -180,12 +227,14 @@ def distill_few_step(
     student = state.ema if state.ema is not None else state.model
     mse_final, _ = eval_few_step_gap(
         models, teacher, student, eval_in,
-        num_student_steps=num_student_steps, teacher_latents=teacher_lat)
+        num_student_steps=num_student_steps, teacher_latents=teacher_lat,
+        mesh=mesh)
 
     # 4. the bundle that serving loads
     ckpt_dir = os.path.join(out_dir, "checkpoint")
-    save_checkpoint(ckpt_dir, dataclasses.replace(
-        models, dit=student))
+    student = _whole_student(student, whole_teacher, mesh)
+    if writer:
+        save_checkpoint(ckpt_dir, dataclasses.replace(models, dit=student))
 
     report = {
         "num_steps": num_steps,
@@ -206,14 +255,15 @@ def distill_few_step(
     }
 
     # 5. the checkpoint through the serving path
-    if serve_smoke:
+    if serve_smoke and writer:
         report["serve_smoke"] = serve_checkpoint_smoke(
             ckpt_dir, num_student_steps=num_student_steps,
             sequence_length=data_cfg.sequence_length,
             device=models.device, dtype=models.dtype)
 
-    with open(os.path.join(out_dir, "distill_report.json"), "w") as f:
-        json.dump(report, f, indent=2)
+    if writer:
+        with open(os.path.join(out_dir, "distill_report.json"), "w") as f:
+            json.dump(report, f, indent=2)
     return report
 
 

@@ -1,6 +1,8 @@
 """Kernel C's plain version (what `int8_matmul_fused` runs for CPU tensors)
 against the JAX package's Pallas W8A8 kernel in interpret mode, its shape
-gate, and its refusal to launch without a card.
+gate, and its refusal to launch without a card; and the plain version of
+its row-parallel instance (given row scale, int32 sums) against the
+whole product.
 
 Bound atol 1e-5, rtol 0: tests/test_quant.py:68's bound for the Pallas
 kernel against the XLA path (the int32 accumulators are equal).  The CUDA
@@ -28,6 +30,36 @@ def _operands(seed, m, k, n):
     x = rng.standard_normal((2, m // 2, k)).astype(np.float32)
     x[0, 0] = 0.0                  # an all-zero row: the 1e-12 scale floor
     return x, w
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_k_slices_summed_in_int32_equal_one_product(parts):
+    """The row-parallel form over the whole K: each K-slice quantized with
+    the whole row's scale (int8_matmul_partial's plain version), the
+    slices' int32 sums added and rescaled once, equal int8_matmul_plain
+    bit for bit (also through int8_matmul_partial's CPU path)."""
+    x, w = _operands(21, 128, 256, 192)
+    x = torch.from_numpy(x)
+    w8, s = tq.quantize_weight_int8(torch.from_numpy(w.T.copy()))
+    _, x_scale = im.quantize_last(x, 127.0)
+    step = 256 // parts
+    slices = [slice(i, i + step) for i in range(0, 256, step)]
+    acc = sum(im.int8_matmul_partial_plain(x[..., k], w8[:, k], x_scale)
+              for k in slices)
+    assert acc.dtype == torch.int32
+    want = im.int8_matmul_plain(x, w8, s, torch.float32)
+    torch.testing.assert_close(im.int8_rescale(acc, x_scale, s, torch.float32),
+                               want, rtol=0, atol=0)
+    acc2 = sum(im.int8_matmul_partial(x[..., k], w8[:, k], x_scale)
+               for k in slices)
+    torch.testing.assert_close(acc2, acc, rtol=0, atol=0)
+
+
+def test_partial_checks_its_scale():
+    x = torch.zeros((4, 32))
+    w8 = torch.zeros((16, 32), dtype=torch.int8)
+    with pytest.raises(ValueError, match="x_scale"):
+        im.int8_matmul_partial(x, w8, torch.ones((3,)))
 
 
 def test_plain_matches_pallas_interpret():
