@@ -32,7 +32,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      micro-batched pass of eight concurrent submits to MicroBatchServer
      (KV batch 8), each request's noise bit for bit its single draw and its
      latents within rel-RMS 1e-2 of the request run alone, with the
-     batch's audio seconds per wall second; then training at the published
+     batch's audio seconds per wall second; then the runnable entry points
+     (echo_tts_torch/examples/, given phase 3's models): (p) generate.main
+     with voice.wav, a preset and a seed, its WAV bit for bit
+     sample_pipeline's audio; (q) streaming_demo.main --total-latents 640,
+     its WAV bit for bit request (e)'s chunks; (r) soak_long_stream.main,
+     one stream of 16 x 320 = 5120 latents (the largest schedule serving
+     accepts) with its report and gates (tail/mid <= 1.5, memory_allocated
+     growth <= 256 MB, 5120 x 2048 finite samples), kernel A's shapes
+     recorded and the measured stream's launches exact; (s)
+     tools/check_fullsize.check, the full-depth CFG forward in bf16 within
+     rel-RMS 0.05 and max-abs 0.30 of fp32, the W8A8 forward beside it;
+     then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
      batch of the DataConfig shapes, t and eps fixed, three steps in each
      remat mode (none, full, dots, dots_all, attn): kernel A's launches
@@ -66,7 +77,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   4. each kernel against its plain PyTorch version on the card at the main
      path's shapes (and at ragged shapes shorter than one tile): joint
      attention with bf16 and with int8 static K/V, at the streaming
-     shapes (latent-prefix columns, part or a whole tile masked) and over
+     shapes (latent-prefix columns, part or a whole tile masked; request
+     r's last block, T = 2208 with 1200 of 1280 latent columns valid) and over
      a KV batch of 2 and 8 (request h's, per-row speaker lengths masked),
      at request k's teacher (GB = 6 over a KV batch of 2) and request m's
      demo (GB = 3 and 1, 10 of 160 speaker columns valid) with T = 928,
@@ -100,7 +112,6 @@ import functools
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -122,6 +133,10 @@ DEVICE = "cuda"             # the serving requests' ECHO_DEVICE
 TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
         "bedtime story.")
 STREAM_TOTAL = 640          # request (e): growing_schedule(640)
+GENERATE_PRESET, GENERATE_SEED = "Independent-High-CFG", 11   # request (p)
+# request (r)'s last block: latent-prefix columns 5120 / 4, valid 4800 / 4;
+# the soak's prompt fills every text column
+SOAK_LATENT_COLUMNS, SOAK_LAST_VALID, SOAK_TEXT_VALID = 1280, 1200, 768
 # Request (e)'s decode, held two ways.  An fp32 copy of the codec with the
 # residual stacks' plain version decodes the stream's latents streamed, on
 # the same schedule, and one-shot: the two agree within the JAX package's
@@ -308,10 +323,8 @@ def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from echo_tts_torch.device import card_name
+    card = card_name()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -340,7 +353,8 @@ def phase_build():
 
 def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
                    n_lat: int = 0, lat_valid: int = 0, b: int = 1,
-                   spk_lens=None, under_grad: bool = False, h: int = 16):
+                   spk_lens=None, under_grad: bool = False, h: int = 16,
+                   n_text: int = 96):
     """Kernel A at one shape; kv8 stores the static K/V int8 (the port's
     quantize_kv_int8 of the same bf16 K/V) and passes their scales.  With
     n_lat, the static columns are [latent, text, speaker] as a streamed
@@ -352,7 +366,8 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     q, k_self, v_self and the static K/V require grad, so that the
     forward runs as training's does, through the autograd Function (its
     kernel launch counted; no backward here).  h: the heads (16, or a
-    tensor-parallel rank's)."""
+    tensor-parallel rank's).  n_text: the valid text columns of the 768
+    (96, a short prompt's bytes; 768, a prompt that fills them)."""
     import torch
     from echo_tts_torch.ops import joint_attention as ja
     from echo_tts_torch.ops import quant
@@ -366,7 +381,6 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     q, ks, vs = rnd(gb, s, h, dh), rnd(gb, s, h, dh), rnd(gb, s, h, dh)
     kt, vt = rnd(b, t, h, dh), rnd(b, t, h, dh)
     t_text = 768
-    n_text = 96                       # real bytes of a short prompt
     text = torch.zeros((t,), dtype=torch.bool, device=dev)
     text[n_lat:n_lat + min(n_text, t_text)] = True
     spk_cols = torch.zeros((t,), dtype=torch.bool, device=dev)
@@ -417,6 +431,7 @@ def attention_case(gb: int, s: int, t: int, seed: int, kv8: bool = False,
     latent += f" B={b}" if b > 1 else ""
     latent += f" speaker columns {list(spk_lens)}" if spk_lens else ""
     latent += " under grad" if under_grad else ""
+    latent += f" text {n_text}" if n_text != 96 else ""
     name = (f"joint attention{' int8 K/V' if kv8 else ''} GB={gb} S={s} "
             f"T={t}{latent}")
     if rel > REL_RMS_BOUND:
@@ -900,6 +915,13 @@ def phase_kernels():
                       [(3, 40, 778, 0, 0), (3, 320, 938, 160, 70),
                        (1, 80, 938, 160, 10), (3, 320, 1098, 320, 70)])]
     att += att_stream
+    # request (r)'s last block: the block of 320 at 4800 in a 5120-latent
+    # stream, T = 1280 latent + 768 text + 160 speaker columns with 1200
+    # latent and all 768 text columns valid; GB = 3 on CFG steps, 1 else
+    att += [attention_case(gb, 320, SOAK_LATENT_COLUMNS + 768 + 160,
+                           seed=130 + gb, n_lat=SOAK_LATENT_COLUMNS,
+                           lat_valid=SOAK_LAST_VALID, n_text=SOAK_TEXT_VALID)
+            for gb in (3, 1)]
     # micro-batched passes (request h): a KV batch of B = 2 requests (GB = 6
     # on CFG steps) and of B = 8 (GB = 24 on CFG steps, 8 else), the eight
     # rows' speakers padded to one bucket with their own lengths masked
@@ -1149,7 +1171,7 @@ def phase_main_path(card: str):
     log(f"  W8A8 + int8 K/V vs bf16, one dit_forward_static at GB=3 S=640 "
         f"T={kv[0].shape[2]}: rel-RMS {rel:.3e} (information only)")
 
-    got = request_stream(models, voice, counters, n_voice_chunks)
+    got, stream_audio = request_stream(models, voice, counters, n_voice_chunks)
     for k, v in got.items():
         launches[k] += v
     incremental_check(models, lat, mask, ids_t, tmask_t)
@@ -1169,10 +1191,20 @@ def phase_main_path(card: str):
                     request_batch(models, counters, card)):
             for k, v in got.items():
                 launches[k] += v
+
+    # the runnable entry points: (p) generate, (q) streaming_demo, (r) the
+    # long-stream soak, (s) the full-depth bf16 forward against fp32
+    for got in (request_generate(models, counters, n_layers, n_voice_chunks),
+                request_stream_demo(models, counters, stream_audio, n_layers,
+                                    n_voice_chunks),
+                request_soak(models, counters, card),
+                request_fullsize(models, counters, n_layers, n_int8_linears)):
+        for k, v in got.items():
+            launches[k] += v
     return launches, req_b
 
 
-def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
+def request_stream(models, voice, counters, n_voice_chunks: int) -> tuple:
     """Request (e): stream_synthesize on the growing schedule of
     STREAM_TOTAL latents with voice.wav.  Checks the chunks, the launch
     counts (24 x 40 attention per block, kernel B's history form three
@@ -1181,7 +1213,8 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
     the same latents (see JAX_STREAM_BOUND and STREAM_BF16_RATIO); prints
     each chunk's arrival on the host clock, the time to first audio, the
     streamed RTF and the playback stall of a listener who starts at first
-    audio.  Returns the launch counts."""
+    audio.  Returns the launch counts and the chunks' audio concatenated
+    (1, samples)."""
     import torch
     from echo_tts_torch import SAMPLER_DEFAULTS, growing_schedule, stream_synthesize
     from echo_tts_torch.models.dac.dac import pca_unwhiten
@@ -1280,7 +1313,7 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> dict:
     log(f"  request e: TTFA {arrivals[0] * 1e3:.1f} ms, streamed RTF "
         f"{audio_s / wall:.3f}x, playback stall {stall * 1e3:.1f} ms after "
         f"first audio; decode_ms per block {[round(v, 1) for v in decode_ms]}")
-    return got
+    return got, streamed.numpy()
 
 
 def incremental_check(models, lat, mask, ids, tmask) -> None:
@@ -1657,6 +1690,217 @@ def request_batch(models, counters, card: str) -> dict:
     log(f"  request h: batch wall {wall * 1e3:.1f} ms for {audio_s:.2f} s of "
         f"audio: {audio_s / wall:.3f} audio seconds per wall second "
         f"(information for throughput_rtf_b8; {card}); server {stats}")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the runnable entry points
+# ---------------------------------------------------------------------------
+
+def _same_wav(path: str, audio, rate: int) -> bool:
+    """Whether the WAV at path holds exactly `audio` as write_wav writes it."""
+    from echo_tts_torch.pipeline import audio_io
+    want = path + ".want.wav"
+    audio_io.write_wav(want, audio, rate)
+    with open(path, "rb") as a, open(want, "rb") as b:
+        return a.read() == b.read()
+
+
+def request_generate(models, counters, n_layers: int,
+                     n_voice_chunks: int) -> dict:
+    """Request (p): examples/generate.main with --random-weights, given
+    phase 3's models: TEXT, voice.wav, the preset GENERATE_PRESET, seed
+    GENERATE_SEED.  Its WAV holds exactly sample_pipeline's audio at that
+    seed and preset (the bytes write_wav gives it), that audio finite and
+    not silent; kernel A 24 x 40, kernel B 3 (the decode) and 3 per voice
+    chunk.  Returns the launch counts."""
+    import tempfile
+
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.examples import generate
+    from echo_tts_torch.pipeline import audio_io, pipeline as pl
+    from echo_tts_torch.serve.handler import build_sample_fn
+
+    name = (f"p: examples.generate --random-weights --voice voice.wav "
+            f"--preset {GENERATE_PRESET} --seed {GENERATE_SEED}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.wav")
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = generate.main(["--random-weights", "--text", TEXT, "--voice",
+                            VOICE, "--preset", GENERATE_PRESET, "--seed",
+                            str(GENERATE_SEED), "--out", out], models=models)
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        sample_fn, _ = build_sample_fn(None, preset=GENERATE_PRESET)
+        want, _ = pl.sample_pipeline(models, sample_fn, TEXT,
+                                     audio_io.load_audio(VOICE), GENERATE_SEED)
+        rate = models.dac_cfg.sample_rate
+        wav, sr = audio_io.read_wav(out)
+        same = _same_wav(out, want, rate)
+    n_attn = n_layers * SAMPLER_DEFAULTS["num_steps"]
+    if got != _want(attn=n_attn, res=3 + 3 * n_voice_chunks):
+        raise AssertionError(f"{name}: launches {got}")
+    if (rc != 0 or not same or sr != rate or wav.shape != want.shape
+            or not np.isfinite(want).all() or float(np.abs(want).max()) <= 1e-4):
+        raise AssertionError(f"{name}: exit {rc}; the WAV ({wav.shape}, "
+                             f"{sr} Hz) holds sample_pipeline's audio "
+                             f"{want.shape}: {same}")
+    log(f"  request {name}: {wall * 1e3:.1f} ms wall (the WAV written), "
+        f"{want.shape[1] / rate:.2f} s audio; the WAV is sample_pipeline's "
+        f"audio at the same seed and preset, bit for bit; launches {got}")
+    return got
+
+
+def request_stream_demo(models, counters, stream_audio, n_layers: int,
+                        n_voice_chunks: int) -> dict:
+    """Request (q): examples/streaming_demo.main --total-latents
+    STREAM_TOTAL with request (e)'s text, voice and seed: its WAV holds
+    exactly (e)'s chunks concatenated; launches as (e)'s.  Returns the
+    launch counts."""
+    import tempfile
+
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS, growing_schedule
+    from echo_tts_torch.examples import streaming_demo
+
+    name = (f"q: examples.streaming_demo --total-latents {STREAM_TOTAL} "
+            f"--voice voice.wav --seed 5")
+    n_blocks = len(growing_schedule(STREAM_TOTAL))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "stream.wav")
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = streaming_demo.main(["--text", TEXT, "--voice", VOICE,
+                                  "--total-latents",
+                                  str(STREAM_TOTAL), "--seed", "5", "--out",
+                                  out], models=models)
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        same = _same_wav(out, stream_audio, models.dac_cfg.sample_rate)
+    want = _want(attn=n_layers * SAMPLER_DEFAULTS["num_steps"] * n_blocks,
+                 res=3 * n_voice_chunks, res_stream=3 * n_blocks)
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+    if rc != 0 or not same:
+        raise AssertionError(f"{name}: exit {rc}; the WAV holds request "
+                             f"(e)'s chunks: {same}")
+    log(f"  request {name}: {wall * 1e3:.1f} ms wall; the WAV is request "
+        f"(e)'s chunks concatenated, bit for bit; launches {got}")
+    return got
+
+
+def request_soak(models, counters, card: str) -> dict:
+    """Request (r): examples/soak_long_stream.main at its full schedule (16
+    blocks of 320 latents, 5120, the largest that serving accepts), given
+    phase 3's models.  Its report is printed and every gate holds: tail/mid
+    <= 1.5, memory_allocated growth <= 256 MB, 5120 x 2048 finite samples.
+    The measured stream's launches are exact (kernel A 24 x 40 x 16 =
+    15360; kernel B's history form 3 a block, 48; its one-shot form 0, the
+    speaker given as latents), and so are the whole call's (its warm pass
+    of WARM_BLOCKS blocks too).  Kernel A's (GB, S, T) are recorded: the
+    blocks after the first read T = SOAK_LATENT_COLUMNS + 768 + 160, the
+    last with SOAK_LAST_VALID latent and SOAK_TEXT_VALID text columns
+    valid, the shape and mask phase 4 holds and times.  Returns the launch counts."""
+    import collections
+    import tempfile
+
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.examples import soak_long_stream as soak
+    from echo_tts_torch.models import dit as tdit
+
+    n_blocks = 16
+    steps, n_layers = SAMPLER_DEFAULTS["num_steps"], models.dit_cfg.num_layers
+    shapes, last = collections.Counter(), {}
+    run_attention = tdit.fused_joint_attention
+
+    def recording_attention(q, *a, **k):
+        shapes[(q.shape[0], q.shape[1], a[2].shape[1])] += 1
+        last["mask"] = a[4]
+        return run_attention(q, *a, **k)
+
+    name = "r: examples.soak_long_stream, 16 x 320 latents"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "soak.json")
+        tdit.fused_joint_attention = recording_attention
+        try:
+            _reset(counters)
+            rc = soak.main(["--blocks", str(n_blocks), "--report", path],
+                           models=models)
+            got = _read(counters)
+        finally:
+            tdit.fused_joint_attention = run_attention
+        with open(path) as f:
+            report = json.load(f)
+    per_block = n_layers * steps
+    n_calls = n_blocks + soak.WARM_BLOCKS
+    want = _want(attn=per_block * n_calls, res_stream=3 * n_calls)
+    want_measured = {"joint_attention": per_block * n_blocks, "res_stack": 0,
+                     "res_stack_stream": 3 * n_blocks}
+    t_last = SOAK_LATENT_COLUMNS + 768 + 160
+    valid = int(last["mask"][0, :SOAK_LATENT_COLUMNS].sum())
+    text_valid = int(last["mask"][0, SOAK_LATENT_COLUMNS:
+                                  SOAK_LATENT_COLUMNS + 768].sum())
+    if (rc != 0 or not report["ok"] or got != want
+            or report["launches"] != want_measured
+            or report["total_latents"] != 5120 or report["audio_samples"]
+            != 5120 * models.dac_cfg.frame_length
+            or "memory_growth_mb" not in report
+            or "tail_over_mid_ratio" not in report
+            or max(t for _, _, t in shapes) != t_last
+            or not {(3, 320, t_last), (1, 320, t_last)} <= set(shapes)
+            or valid != SOAK_LAST_VALID or text_valid != SOAK_TEXT_VALID):
+        raise AssertionError(
+            f"{name}: exit {rc}, failures {report['failures']}; launches "
+            f"{got}, want {want}; measured {report['launches']}, want "
+            f"{want_measured}; kernel A (GB, S, T) {dict(shapes)}; the last "
+            f"block's valid latent columns {valid}, text columns "
+            f"{text_valid}")
+    blocks = report["blocks"]
+    log(f"  request {name}: tail/mid {report['tail_over_mid_ratio']:.4f} "
+        f"(bound {soak.TAIL_OVER_MID_BOUND}), memory_allocated growth "
+        f"{report['memory_growth_mb']:.3f} MB (bound "
+        f"{soak.MEMORY_GROWTH_BOUND / 2**20:.0f} MB), "
+        f"{report['audio_samples']} finite samples ({report['audio_seconds']:.2f}"
+        f" s audio) in {report['wall_seconds']:.2f} s: streamed RTF "
+        f"{report['streamed_rtf']:.3f}x; warm pass ({report['warm_blocks']} "
+        f"blocks) {report['warm_pass_seconds']:.2f} s; block ms "
+        f"{[round(b['block_ms'], 1) for b in blocks]}; launches measured "
+        f"{report['launches']}, whole call {got}; kernel A (GB, S, T) "
+        f"{dict(shapes)}, the last block's valid latent columns {valid} of "
+        f"{SOAK_LATENT_COLUMNS}, text columns {text_valid} of 768 ({card})")
+    return got
+
+
+def request_fullsize(models, counters, n_layers: int,
+                     n_int8_linears: int) -> dict:
+    """Request (s): tools/check_fullsize.check on phase 3's DiT (24/14/14
+    layers, seeded random bf16 weights): one CFG forward (GB = 3) in bf16
+    with kernel A within rel-RMS 0.05 and max-abs 0.30 of the same weights
+    in fp32 (plain attention, TF32 off), the W8A8 forward beside it.
+    Launches: kernel A 24 (bf16) + 24 (W8A8), kernel C 8 x 24, none in
+    fp32.  Returns the launch counts."""
+    from echo_tts_torch.tools import check_fullsize
+
+    _reset(counters)
+    report = check_fullsize.check(models.dit)
+    got = _read(counters)
+    want = _want(attn=2 * n_layers, int8=n_int8_linears * n_layers)
+    name = "s: tools.check_fullsize, full-depth bf16 forward vs fp32"
+    if report["failures"] or got != want:
+        raise AssertionError(f"{name}: {report['failures']}; launches {got}, "
+                             f"want {want}")
+    log(f"  request {name}: rel-RMS {report['rel_rms_err']:.4e} (bound "
+        f"{check_fullsize.ENVELOPE_REL_RMS}), max-abs "
+        f"{report['max_abs_err']:.4e} (bound "
+        f"{check_fullsize.ENVELOPE_MAX_ABS}), fp32 output std "
+        f"{report['out_std']:.4f}; W8A8 from bf16 rel-RMS "
+        f"{report['int8_rel_rms_vs_bf16']:.4e}, from fp32 "
+        f"{report['int8_rel_rms_vs_fp32']:.4e} (information); launches {got}; "
+        f"{report['wall_s']:.1f} s")
     return got
 
 
@@ -2523,6 +2767,11 @@ def main(argv) -> int:
             # requests (n) and (o): a tensor-parallel rank's heads at
             # request (b)'s shape (8 at tp = 2, 4 at tp = 4)
             shard_h8=summary(att_shard[0]), shard_h4=summary(att_shard[1]),
+            # request (r)'s last block, on CFG steps and else
+            soak_last_block=summary(next(r for r in att if r["shape"]
+                                         .startswith("GB=3 S=320 T=2208"))),
+            soak_last_block_gb1=summary(next(
+                r for r in att if r["shape"].startswith("GB=1 S=320 T=2208"))),
             launches_per_train_step={
                 mode: r["launches_per_step"]
                 for mode, r in trained["train"].items()},

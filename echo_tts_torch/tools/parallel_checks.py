@@ -28,12 +28,12 @@ power limit and, as its last line, one JSON object with every number.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
 import os
 import socket
-import subprocess
 import sys
 import time
 
@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import SAMPLER_DEFAULTS, base_dit_config
+from ..device import card_names
 from ..models import dit as tdit
 from ..ops import quant
 from ..ops.int8_matmul import int8_matmul_fused, int8_matmul_partial
@@ -222,18 +223,25 @@ def dp_sample_check(model, mesh, req: dict, ref: torch.Tensor,
     return out
 
 
-@torch.inference_mode()
-def fp32_refs(model, req: dict) -> tuple:
-    """The fp32 copy of `model` (plain attention, which the bf16-only
-    kernel A cannot run): its 40-step latents on `req` and its CFG
-    forward."""
-    fp32 = copy.deepcopy(model).float()
+@contextlib.contextmanager
+def plain_attention():
+    """The DiT's joint attention through its plain version (fp32 models:
+    kernel A takes bf16 only); nothing launches kernel A inside."""
     attention = tdit.fused_joint_attention
     tdit.fused_joint_attention = joint_attention_plain
     try:
-        return sample(fp32, req), cfg_forward(fp32, req)
+        yield
     finally:
         tdit.fused_joint_attention = attention
+
+
+@torch.inference_mode()
+def fp32_refs(model, req: dict) -> tuple:
+    """The fp32 copy of `model` (plain attention): its 40-step latents on
+    `req` and its CFG forward."""
+    fp32 = copy.deepcopy(model).float()
+    with plain_attention():
+        return sample(fp32, req), cfg_forward(fp32, req)
 
 
 # gates of a rank's results (chip_smoke.py says why each is what it is)
@@ -354,9 +362,7 @@ def main(argv=None) -> int:
     if world < 4:
         raise SystemExit(f"parallel_checks needs 4 cards, found {world}")
     world = 4
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    smi = card_names()
     for line in smi:
         print(line, flush=True)
     from ..ops import cuda_build

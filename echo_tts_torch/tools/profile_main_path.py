@@ -48,7 +48,6 @@ import dataclasses
 import functools
 import json
 import statistics
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -59,6 +58,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import SAMPLER_DEFAULTS, MAX_TEXT_LENGTH
+from ..device import card_name
 from ..ops.quant import quantize_dit
 from ..pipeline import audio_io, pipeline as pl
 from ..pipeline.text import get_text_input_ids_and_mask
@@ -265,9 +265,7 @@ def main(argv) -> int:
         raise SystemExit("profile_main_path: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     if "--train" in argv:
         print(json.dumps({"card": card, "stages": train_stages()}), flush=True)

@@ -45,12 +45,12 @@ import contextlib
 import copy
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
+from ..device import card_name
 from ..models import dit as tdit
 from ..models.dac import dac as tdac
 from ..models.dac import streaming as tstream
@@ -214,9 +214,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("stream_checks needs a CUDA card", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     models = pl.random_models()
     dec = decode_checks(models)

@@ -34,12 +34,12 @@ import argparse
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 
 import torch
 
 from ..config import base_dit_config
+from ..device import card_name
 from ..models import dit as tdit
 from ..ops.joint_attention import joint_attention_plain
 from ..pipeline.text import get_text_input_ids_and_mask
@@ -150,9 +150,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     base = base_dit_config(blockwise=False)
     runs = [(0, n) for n in _ints(args.depths)]
