@@ -43,6 +43,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      recorded and the measured stream's launches exact; (s)
      tools/check_fullsize.check, the full-depth CFG forward in bf16 within
      rel-RMS 0.05 and max-abs 0.30 of fp32, the W8A8 forward beside it;
+     then the measurement modules (echo_tts_torch/examples/bench_*.py,
+     given phase 3's models, one timed call a stage, each one JSON line
+     with its numbers finite and its launches exact): (t)
+     bench_kv_quant --long-speaker --w4a8, the sampler at B = 1 and at
+     B = 8 over the 6400-latent speaker bucket with bf16 and int8 static
+     K/V (kernel A at GB = 24 and 8, T = 2368; the K/V sizes those of 24 x
+     2 x 8 x 2368 x 2048 values) and the M = 120 scan in W8A8 and W4A8;
+     (u) bench_int8_surfaces, the W8A8 request at seq 224 and one B = 8
+     run_batch pass (kernel C at M = 15360 and 5120); (v)
+     bench_train_step --sweep --remats attn from B = 2 to 16 or the
+     first out-of-memory point, 24 kernel A launches a step, its FLOP
+     count the JAX script's; (w) the other seven (long reference, few
+     step, stream int8, TTFA breakdown, the latent prefix over a
+     1280-latent stream, the attention sweep, the int8 scans);
      then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
      batch of the DataConfig shapes, t and eps fixed, three steps in each
@@ -99,7 +113,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      together), the host microseconds per wrapper call, the card's bound
      for the same work and the kernel's share of it; for the residual
      stack also the codec's unrolled path (three residual_unit calls) as
-     a yardstick;
+     a yardstick; kernel A at request (t)'s B = 8 shapes (GB = 24 and 8,
+     T = 2368, bf16 and int8 K/V) and kernel C at request (u)'s (M =
+     15360 and 5120, each (K, N)) and (t)'s (M = 120, K = 2048, N =
+     5888);
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 With --kernels-only it skips phase 3 and prints one {"cases": ...} line
 after phase 4 instead, so that two trees' kernels can be timed in one call.
@@ -120,11 +137,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 and int8
-# tensor cores and HBM3 bandwidth.
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
+from echo_tts_torch.utils.profiling import (  # noqa: E402
+    PEAK_INT8_OPS, bound, host_us_paired, timed)
+
 INT8_FP32_BOUND = 1e-5  # W8A8 fp32 output vs plain (tests/test_quant.py:68)
 REL_RMS_BOUND = 1e-2   # bf16 kernel vs plain (PARITY.md: bf16 vs fp32 1.05e-2)
 
@@ -175,95 +190,8 @@ LONG_TEXT = (
     "gathering night.")
 
 
-# torch.profiler traces a timing takes before it reads CUDA events instead
-TRACES = 5
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def timed(fn, reps: int) -> dict:
-    """One call of fn, after a warm-up: `ms`, its device time, the sum of
-    the device intervals (kernels, copies, sets) that `reps` calls queue,
-    as torch.profiler reads them, over reps; `by_name`, that sum split by
-    kernel name; `host_us`, the host's microseconds to issue one call (the
-    wall time of `reps` calls queued without a synchronise, over reps);
-    `timer`, what read `ms`.
-
-    Every call queues the same device work, so a whole trace holds each
-    name's events a positive multiple of `reps` times.  The profiler now
-    and then drops some of a kernel's events, which would read several
-    times too fast, and a trace that does so is taken again.  After
-    TRACES such traces `ms` is read with CUDA events instead: the device's
-    elapsed time from before the first of `reps` calls to after the last,
-    over reps.  That time holds the gaps between the calls' work too, so
-    it is never below the profiler's sum; `by_name` is then empty."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    for _ in range(TRACES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name, count = {}, {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                span = (ev.time_range.end - ev.time_range.start) / 1e3 / reps
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + span
-                count[ev.name] = count.get(ev.name, 0) + 1
-        short = {k[:60]: n for k, n in count.items() if n % reps}
-        ms = sum(by_name.values())
-        if ms > 0 and not short:
-            return dict(ms=ms, by_name=by_name, host_us=host_us,
-                        timer="profiler")
-        log(f"  (torch.profiler: device time {ms:.4f} ms, events not a "
-            f"multiple of {reps} calls: {short}; tracing again)")
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    log(f"  (torch.profiler dropped device events in {TRACES} traces of "
-        f"{reps} calls: {ms:.4f} ms per call read with CUDA events)")
-    return dict(ms=ms, by_name={}, host_us=host_us, timer="cuda events")
-
-
-def host_us_paired(fn_a, fn_b, reps: int = 50, rounds: int = 41) -> dict:
-    """The host's microseconds to issue one call of fn_a and of fn_b:
-    rounds of `reps` calls each, the two in turns (a, b, b, a, ...), each
-    round ended by a synchronise.  `a_us` and `b_us` are the median round
-    of each; `diff_us` the median of the rounds' differences b - a, with
-    its quartiles in `diff_q_us`.  Turns keep a drift of the shared host's
-    load out of the difference; the quartiles say whether it is resolved
-    (both on one side of 0)."""
-    import torch
-    times = ([], [])
-    for r in range(rounds):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
-            fn = (fn_a, fn_b)[i]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            times[i].append((time.perf_counter() - t0) / reps * 1e6)
-            torch.cuda.synchronize()
-    diff = np.subtract(times[1], times[0])
-    return dict(a_us=float(np.median(times[0])),
-                b_us=float(np.median(times[1])),
-                diff_us=float(np.median(diff)),
-                diff_q_us=[float(x) for x in np.percentile(diff, [25, 75])])
 
 
 def errors(got, want) -> tuple:
@@ -275,14 +203,6 @@ def errors(got, want) -> tuple:
     max_abs = float((g - w).abs().max())
     rel_rms = float(((g - w).pow(2).mean().sqrt()) / w.pow(2).mean().sqrt())
     return max_abs, rel_rms
-
-
-def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
-    """(ms, what bounds it): the larger of ops at the operand type's peak
-    rate and bytes at the memory rate."""
-    t_ops = ops / peak * 1e3
-    t_mem = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
 # launch counters: {name: (wrapper, attribute)}, reset just before a
@@ -944,16 +864,43 @@ def phase_kernels():
             for i, (gb, t) in enumerate([(3, 778), (1, 778), (3, 2368)])]
     att8.append(attention_case(24, 640, 778, seed=103, kv8=True, b=8,
                                spk_lens=spk_lens))
+    # request (t)'s B = 8 pass over the 6400-latent speaker bucket: T = 768
+    # text (200 valid) + 1600 speaker columns, GB = 24 on CFG steps and 8
+    # else, with bf16 and with int8 static K/V
+    att_long = [attention_case(gb, 640, 2368, seed=140 + i, kv8=kv8, b=8,
+                               n_text=200)
+                for i, (gb, kv8) in enumerate([(24, False), (8, False),
+                                               (24, True), (8, True)])]
+    att += att_long[:2]
+    att8 += att_long[2:]
+    # request (u)'s short W8A8 request (seq 224 over the 640-latent
+    # speaker: T = 768 + 160, 200 text columns valid) and request (w)'s
+    # 2816-latent speaker bucket (bench_long_reference: five 640-latent
+    # chunks encoded, 2816 latents valid, so T = 768 + 800 with 704 speaker
+    # columns valid), each at GB = 3 on CFG steps and 1 else
+    att += [attention_case(gb, s, t, seed=150 + i, n_text=200,
+                           spk_lens=lens)
+            for i, (gb, s, t, lens) in enumerate(
+                [(3, 224, 928, None), (1, 224, 928, None),
+                 (3, 640, 1568, [704]), (1, 640, 1568, [704])])]
     # kernel A under grad (the autograd Function, backward by recompute)
     att_bwd = attention_backward_case(3, 640, 778, seed=104)
     att8 += [r for r in edges[:4] if "int8" in r["shape"]]
     att += [r for r in edges[:4] if "int8" not in r["shape"]]
     # every (M, K, N) the W8A8 DiT gives kernel C: M = 1920 on CFG steps
     # (GB=3), 640 else; wq/wk/wv/gate/wo (2048, 2048), w1/w3 (2048, 5888),
-    # w2 (5888, 2048)
+    # w2 (5888, 2048); request (u)'s B = 8 pass (M = 24 x 640 = 15360 on
+    # CFG steps, 8 x 640 = 5120 else) and its short request (M = 3 x 224 =
+    # 672 on CFG steps, 224 else); request (t)'s M = 120 scan, the
+    # streaming first block's rows (3 x 40) at w1's shape
     mm = [int8_matmul_case(m, k, n, seed=40 + i) for i, (m, k, n) in enumerate(
         [(1920, 2048, 5888), (1920, 2048, 2048), (1920, 5888, 2048),
-         (640, 2048, 5888), (640, 2048, 2048), (640, 5888, 2048)])]
+         (640, 2048, 5888), (640, 2048, 2048), (640, 5888, 2048),
+         (15360, 2048, 5888), (15360, 2048, 2048), (15360, 5888, 2048),
+         (5120, 2048, 5888), (5120, 2048, 2048), (5120, 5888, 2048),
+         (672, 2048, 5888), (672, 2048, 2048), (672, 5888, 2048),
+         (224, 2048, 5888), (224, 2048, 2048), (224, 5888, 2048),
+         (120, 2048, 5888)])]
     mm += edges[4:]
     # every (C, L, snake) the main path gives the kernel for 640 latents:
     # decoder blocks 1-3 with the serving decoder's sin2_poly, speaker
@@ -1201,6 +1148,11 @@ def phase_main_path(card: str):
                 request_fullsize(models, counters, n_layers, n_int8_linears)):
         for k, v in got.items():
             launches[k] += v
+    # the measurement modules: (t) int8 static K/V at B = 8 over the
+    # 6400-latent bucket and the M = 120 scan, (u) the W8A8 surfaces, (v)
+    # the train step's batch sweep, (w) the other seven
+    for k, v in request_benches(models, counters, card).items():
+        launches[k] += v
     return launches, req_b
 
 
@@ -1902,6 +1854,211 @@ def request_fullsize(models, counters, n_layers: int,
         f"{report['int8_rel_rms_vs_fp32']:.4e} (information); launches {got}; "
         f"{report['wall_s']:.1f} s")
     return got
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the measurement modules (echo_tts_torch/examples/
+# bench_*.py), requests (t)-(w)
+# ---------------------------------------------------------------------------
+
+# The JAX script's forward count at B = 1 (examples/bench_train_step.py
+# _useful_fwd_tflop(base_dit_config(), 1)); request (v) holds the port's to it
+TRAIN_FWD_TFLOP_B1 = 2.51984871424
+TRAIN_SWEEP_MAX_B = 16
+# (w) streams bench_incremental_crossover at this total (7 blocks)
+CROSSOVER_TOTAL = 1280
+# one timed call of each stage and no warm-up: the requests before them
+# have run every kernel and code path these reach
+BENCH_REPS = ["--warmup", "0", "--reps", "1"]
+
+
+def run_bench(module, argv, models) -> dict:
+    """module.main(argv, models=models); its one JSON line, parsed (every
+    number in it finite); raises on a non-zero exit."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv, models=models)
+    out = buf.getvalue().strip().splitlines()
+    name = module.__name__.rsplit(".", 1)[-1]
+    if rc != 0 or not out:
+        raise AssertionError(f"{name} {argv}: exit {rc}, output {out}")
+    line = json.loads(out[-1])
+
+    def finite(x):
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, list):
+            return all(finite(v) for v in x)
+        return not isinstance(x, float) or math.isfinite(x)
+
+    if not finite(line):
+        raise AssertionError(f"{name}: a number is not finite: {out[-1]}")
+    log(f"  {name} {' '.join(argv)} ({time.perf_counter() - t0:.1f} s): "
+        f"{out[-1]}")
+    return line
+
+
+def _bench_request(module, argv, models, counters, want, name, check=None):
+    """Run a bench module; hold its launches to `want` and its line to
+    `check` (a list of failures); returns the launches."""
+    _reset(counters)
+    line = run_bench(module, argv + BENCH_REPS, models)
+    got = _read(counters)
+    failures = [] if check is None else check(line)
+    if got != want or failures:
+        raise AssertionError(f"{name}: launches {got}, want {want}; "
+                             f"{failures}")
+    log(f"  request {name}: launches {got}")
+    return got
+
+
+def request_benches(models, counters, card: str) -> dict:
+    """Requests (t)-(w), each bench module's main on phase 3's models with
+    one timed call a stage (BENCH_REPS); returns the launch counts."""
+    launches = dict.fromkeys(counters, 0)
+    for req in (request_kv_quant, request_int8_surfaces, request_train_sweep,
+                request_bench_rest):
+        for k, v in req(models, counters, card).items():
+            launches[k] += v
+    return launches
+
+
+def request_kv_quant(models, counters, card: str) -> dict:
+    """(t) bench_kv_quant --long-speaker --w4a8: the sampler at B = 1 and at
+    B = 8 over the 6400-latent speaker bucket, each with bf16 and with int8
+    static K/V (kernel A 960 bf16 and 960 int8-K/V launches per sampler
+    call; at B = 8 GB = 24 and 8, T = 768 + 1600 = 2368), latents finite,
+    the B = 8 K/V sizes those of 24 x 2 x 8 x 2368 x 2048 values (bf16:
+    3552 MiB; int8 with fp32 scales over Dh: 1831.5 MiB), and the M = 120
+    scan (kernel C 24 x 40 launches for W8A8 and for W4A8)."""
+    from echo_tts_torch.examples import bench_kv_quant, stages
+    cfg = models.dit_cfg
+    per_call = cfg.num_layers * stages.FULL.steps
+    t_long = 768 + bench_kv_quant.LONG_SPEAKER // cfg.speaker_patch_size
+    kv_values = 2 * cfg.num_layers * 8 * t_long * cfg.model_size
+    want_mb = (kv_values * 2 / 2**20,
+               (kv_values + 2 * cfg.num_layers * 8 * t_long * cfg.num_heads * 4)
+               / 2**20)
+
+    def check(line):
+        rows = line["summary"]
+        b8 = rows[1]
+        return ([r for r in rows[:2] if not r["latents_finite"]]
+                + ([] if (b8["batch"], b8["static_columns"]) == (8, t_long)
+                   and (b8["kv_mb_bf16"], b8["kv_mb_int8"]) == want_mb
+                   else [f"B = 8 row {b8}, want T {t_long}, MiB {want_mb}"]))
+
+    return _bench_request(
+        bench_kv_quant, ["--long-speaker", "--w4a8"], models, counters,
+        _want(attn=2 * per_call, kv8=2 * per_call, int8=2 * per_call),
+        "t: bench_kv_quant, B = 8 over the 6400-latent bucket, --w4a8", check)
+
+
+def request_int8_surfaces(models, counters, card: str) -> dict:
+    """(u) bench_int8_surfaces: the W8A8 request at seq 224 and one B = 8
+    run_batch pass (kernel C 8 x 24 x 40 = 7680 a sampler call, at M = 3 x
+    224 and 224, then 24 x 640 and 8 x 640; kernel A 960; kernel B 3 a
+    decode: 3, then 2 x 3 for the pass's two slices of four)."""
+    from echo_tts_torch.examples import bench_int8_surfaces, stages
+    per_call = models.dit_cfg.num_layers * stages.FULL.steps
+    return _bench_request(
+        bench_int8_surfaces, [], models, counters,
+        _want(attn=2 * per_call, int8=2 * 8 * per_call, res=3 + 2 * 3),
+        "u: bench_int8_surfaces, p50 at seq 224 and a B = 8 pass",
+        lambda line: [] if line["audio_finite"] else ["audio not finite"])
+
+
+def request_train_sweep(models, counters, card: str) -> dict:
+    """(v) bench_train_step --sweep --remats attn, B = 2 doubling to
+    TRAIN_SWEEP_MAX_B or the first out-of-memory point: kernel A 24
+    launches a step at every B that ran (exact over the request when no
+    point ran out of memory), the gradients' sum finite, the FLOP count
+    the JAX script's."""
+    from echo_tts_torch.examples import bench_train_step
+    cfg = models.dit_cfg
+    name = (f"v: bench_train_step --sweep, remat attn, B = 2 to "
+            f"{TRAIN_SWEEP_MAX_B}")
+    _reset(counters)
+    line = run_bench(bench_train_step, ["--sweep", "--remats", "attn",
+                                        "--b-max", str(TRAIN_SWEEP_MAX_B)]
+                     + BENCH_REPS, models)
+    got = _read(counters)
+    ran = [r for r in line["sweep"] if not r.get("oom")]
+    failures = []
+    for r in line["sweep"]:
+        flop = bench_train_step.useful_fwd_tflop(cfg, r["batch"])
+        if abs(flop - r["batch"] * TRAIN_FWD_TFLOP_B1) > 1e-9 * flop:
+            failures.append(f"B = {r['batch']}: forward {flop} TFLOP, the JAX "
+                            f"script's {r['batch'] * TRAIN_FWD_TFLOP_B1}")
+        if not r.get("oom") and (r["launches_per_step"] != cfg.num_layers
+                                 or not r["grad_sum_finite"]):
+            failures.append(f"B = {r['batch']}: {r}")
+    if not ran or (len(ran) == len(line["sweep"])
+                   and got != _want(attn=cfg.num_layers * len(ran))):
+        failures.append(f"launches {got} for {len(ran)} steps")
+    if failures:
+        raise AssertionError(f"{name}: {failures}")
+    log(f"  request {name}: launches {got}; " + ", ".join(
+        f"B = {r['batch']}: " + (
+            "out of memory" if r.get("oom") else
+            f"{r['step_ms']:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{r['mfu_vs_bf16_peak']:.4f}, peak {r['peak_memory_mb']:.0f} MiB")
+        for r in line["sweep"]) + f" ({card})")
+    return got
+
+
+def request_bench_rest(models, counters, card: str) -> dict:
+    """(w) bench_long_reference, bench_few_step, bench_stream_int8,
+    bench_ttfa_breakdown, bench_incremental_crossover at CROSSOVER_TOTAL,
+    bench_attention, bench_int8, each with its launches exact;
+    bench_attention's kernel A rows each within REL_RMS_BOUND of the plain
+    version on the same inputs."""
+    from echo_tts_torch.examples import (
+        bench_attention, bench_few_step, bench_incremental_crossover,
+        bench_int8, bench_long_reference, bench_stream_int8,
+        bench_ttfa_breakdown, stages)
+    from echo_tts_torch.serve.presets import growing_schedule
+    n_layers = models.dit_cfg.num_layers
+    per_call = n_layers * stages.FULL.steps
+    n_lin = 8                                   # W8A8 linears a block
+    few = bench_few_step.FEW_STEPS * n_layers   # no CFG step
+    chunks = sum(-(-b // bench_long_reference.CHUNK_LATENTS)
+                 for b in bench_long_reference.buckets())
+    stream = len(stages.STREAM_BLOCKS) * per_call
+    crossover = len(growing_schedule(CROSSOVER_TOTAL))
+    scans = bench_int8.FULL["layers"] * bench_int8.FULL["repeat"] * (3 + 5)
+    launches = dict.fromkeys(counters, 0)
+
+    def attention_rows(line):
+        # kernel A against its plain version at the sweep's shapes (up to S
+        # = 2048, T = 2432, GB = 24), which no phase-4 case holds
+        return [r for r in line["rows"]
+                if not r["rel_rms_vs_plain"] <= REL_RMS_BOUND]
+
+    for module, argv, want, check in (
+            (bench_long_reference, [],
+             _want(attn=3 * per_call, res=3 * chunks), None),
+            (bench_few_step, [], _want(attn=2 * few + per_call,
+                                       int8=n_lin * few, res=3), None),
+            (bench_stream_int8, [],
+             _want(attn=2 * stream, int8=n_lin * stream,
+                   res_stream=2 * 3 * len(stages.STREAM_BLOCKS)), None),
+            (bench_ttfa_breakdown, [], _want(attn=3 * per_call,
+                                             res_stream=3 * 3), None),
+            (bench_incremental_crossover, [str(CROSSOVER_TOTAL)],
+             _want(attn=2 * crossover * per_call), None),
+            (bench_attention, [],
+             _want(attn=3 * len(bench_attention.SHAPES)), attention_rows),
+            (bench_int8, [], _want(int8=scans), None)):
+        got = _bench_request(module, argv, models, counters, want,
+                             "w: " + module.__name__.rsplit(".", 1)[-1],
+                             check)
+        for k, v in got.items():
+            launches[k] += v
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2772,6 +2929,18 @@ def main(argv) -> int:
                                          .startswith("GB=3 S=320 T=2208"))),
             soak_last_block_gb1=summary(next(
                 r for r in att if r["shape"].startswith("GB=1 S=320 T=2208"))),
+            # request (t)'s B = 8 pass over the 6400-latent bucket (T =
+            # 2368), GB = 24 and 8, bf16 and int8 static K/V
+            long_speaker_b8={
+                r["shape"]: summary(r) for r in att + att8
+                if r["shape"].startswith(("GB=24 S=640 T=2368",
+                                          "GB=8 S=640 T=2368"))},
+            # request (u)'s short request (S = 224, T = 928) and request
+            # (w)'s 2816-latent speaker bucket (S = 640, T = 1568)
+            short_and_2816={r["shape"]: summary(r) for r in att
+                            if r["shape"].startswith((
+                                "GB=3 S=224 T=928", "GB=1 S=224 T=928",
+                                "GB=3 S=640 T=1568", "GB=1 S=640 T=1568"))},
             launches_per_train_step={
                 mode: r["launches_per_step"]
                 for mode, r in trained["train"].items()},
@@ -2805,7 +2974,13 @@ def main(argv) -> int:
             launches["int8_matmul"],
             max_abs_err_bf16=max(r["max_abs_err_bf16"] for r in mm),
             prepass_ms=mm[0]["prepass_ms"],
-            bf16_matmul_ms=mm[0]["bf16_matmul_ms"]),
+            bf16_matmul_ms=mm[0]["bf16_matmul_ms"],
+            # request (u)'s B = 8 pass (M = 15360 and 5120) and short
+            # request (M = 672 and 224), and request (t)'s M = 120 scan
+            by_shape={r["shape"]: summary(r, "prepass_ms", "bf16_matmul_ms")
+                      for r in mm if r["shape"].startswith(
+                          ("M=15360 ", "M=5120 ", "M=672 ", "M=224 ",
+                           "M=120 "))}),
         # the row-parallel instance at request (o)'s w2 slice (M = 1920, K =
         # 5888 / 2); its int32 sums are held exactly (max_abs_err 0)
         kernel_entry(

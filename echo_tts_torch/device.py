@@ -24,10 +24,12 @@ def resolve_device(device="cuda") -> torch.device:
 def card_names() -> List[str]:
     """Each card's name and power limit, one line a card, as `nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader` prints them (the
-    hardware a timing is given with)."""
+    hardware a timing is given with).  Raises subprocess.TimeoutExpired
+    when nvidia-smi has not answered in 10 s."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        capture_output=True, text=True, check=True,
+        timeout=10).stdout.strip().splitlines()
 
 
 def card_name(device="cuda") -> str:

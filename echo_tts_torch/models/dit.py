@@ -33,6 +33,7 @@ rank's heads and hidden units; every path with mesh=None is unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from typing import Dict, Optional, Tuple, Union
@@ -47,7 +48,8 @@ from ..config import EchoDiTConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
 from ..ops.embeddings import get_timestep_embedding
-from ..ops.joint_attention import fused_joint_attention, shardable
+from ..ops.joint_attention import (fused_joint_attention,
+                                   joint_attention_plain, shardable)
 from ..ops.norms import LowRankAdaLN, low_rank_adaln, rms_norm
 from ..ops.quant import kv_is_quantized
 from ..ops.rope import (apply_rotary_emb, apply_rotary_emb_half_heads,
@@ -441,6 +443,19 @@ def latent_prefix_mask(batch_size: int, num_latents: int, start_pos: int,
 # ---------------------------------------------------------------------------
 # Joint attention + DiT forward over the static KV
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every DiT forward's joint attention through its plain version (fp32
+    models: kernel A takes bf16 only); nothing launches kernel A inside."""
+    global fused_joint_attention
+    attention = fused_joint_attention
+    fused_joint_attention = joint_attention_plain
+    try:
+        yield
+    finally:
+        fused_joint_attention = attention
+
 
 def _joint_attention_static(p: JointAttention, x: torch.Tensor,
                             static_mask: torch.Tensor,

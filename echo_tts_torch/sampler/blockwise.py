@@ -23,7 +23,7 @@ inference_blockwise.py:14-123):
 
 The JAX module's lru-cached jitted cores and `sampler_statics` exist only
 to key XLA programs (one per block size and total), and its
-`total_len_bucket` (a padded prefix buffer), `prefill_kv` and
+`total_len_bucket` (a padded prefix buffer), `prefill_kv` argument and
 `first_block_latents` (the fused first block of its streaming layer) only
 to bound or save XLA programs and dispatches.  PyTorch runs eagerly, so
 none of them has a counterpart here.
@@ -39,7 +39,18 @@ from ..models import dit
 from .euler import build_step_plan, make_cfg_branch_masks, run_step_segments
 
 
-def _denoise_block(model: dit.EchoDiT, noise: torch.Tensor,
+def prefill_text_speaker_kv(model: dit.EchoDiT, speaker_latent: torch.Tensor,
+                            text_input_ids: torch.Tensor,
+                            text_mask: torch.Tensor, dtype=torch.bfloat16
+                            ) -> Tuple[dit.KV, dit.KV]:
+    """The text and speaker K/V, once per stream (inference.py:464-465)."""
+    device = next(model.parameters()).device
+    return (dit.get_kv_cache_text(model, text_input_ids.to(device),
+                                  text_mask.to(device)),
+            dit.get_kv_cache_speaker(model, speaker_latent.to(device, dtype)))
+
+
+def denoise_block(model: dit.EchoDiT, noise: torch.Tensor,
                   prefill_kv: Tuple[dit.KV, dit.KV], text_mask: torch.Tensor,
                   speaker_mask: torch.Tensor, *, start_pos: int = 0,
                   kv_latent: Optional[dit.KV] = None, num_steps: int,
@@ -135,10 +146,8 @@ def iter_blockwise_euler_cfg_independent_guidances(
     text_input_ids = text_input_ids.to(device)
     text_mask = text_mask.to(device)
     speaker_mask = speaker_mask.to(device)
-    # the text and speaker encoders, once per stream (inference.py:464-465)
-    prefill_kv = (dit.get_kv_cache_text(model, text_input_ids, text_mask),
-                  dit.get_kv_cache_speaker(model,
-                                           speaker_latent.to(device, dtype)))
+    kv_prefill = prefill_text_speaker_kv(model, speaker_latent,
+                                         text_input_ids, text_mask, dtype)
     sampler = dict(
         num_steps=num_steps, cfg_scale_text=cfg_scale_text,
         cfg_scale_speaker=cfg_scale_speaker, cfg_min_t=cfg_min_t,
@@ -179,9 +188,9 @@ def iter_blockwise_euler_cfg_independent_guidances(
             kv_latent = (inc_state["lat_k"], inc_state["lat_v"])
         else:
             kv_latent = dit.get_kv_cache_latent(model, prefix.to(dtype))
-        x_t = _denoise_block(model, noise, prefill_kv, text_mask,
-                             speaker_mask, start_pos=start_pos,
-                             kv_latent=kv_latent, **sampler)
+        x_t = denoise_block(model, noise, kv_prefill, text_mask,
+                            speaker_mask, start_pos=start_pos,
+                            kv_latent=kv_latent, **sampler)
         prefix[:, start_pos:start_pos + block_size] = x_t
         yield start_pos, x_t, prefix
         if incremental_latent and b_idx + 1 < len(block_sizes):

@@ -163,6 +163,39 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
     return x_t
 
 
+class StaticPrefill(NamedTuple):
+    """A request's prefilled static K/V and what the step loop reads with
+    them (run_step_segments(model, x_t, plan, *prefill, ...))."""
+    kv_static: object          # (k, v), or quantize_kv_int8's dict
+    spk_cols: torch.Tensor
+    mask_cfg: torch.Tensor
+    mask_plain: torch.Tensor
+
+
+@torch.inference_mode()
+def prefill_static(model: dit.EchoDiT, speaker_latent: torch.Tensor,
+                   speaker_mask: torch.Tensor, text_input_ids: torch.Tensor,
+                   text_mask: torch.Tensor, *, dtype=torch.bfloat16,
+                   kv_quant: bool = False, mesh=None) -> StaticPrefill:
+    """The one-time prefill before the step loop (reference:
+    inference.py:464-465), in model dtype: the text and speaker K/V
+    concatenated once, stored int8 when kv_quant, and the CFG branch
+    masks."""
+    device = next(model.parameters()).device
+    text_input_ids = text_input_ids.to(device)
+    text_mask = text_mask.to(device)
+    speaker_mask = speaker_mask.to(device)
+    kv_text = dit.get_kv_cache_text(model, text_input_ids, text_mask, mesh)
+    kv_speaker = dit.get_kv_cache_speaker(
+        model, speaker_latent.to(device=device, dtype=dtype), mesh)
+    kv_static, spk_cols = dit.concat_static_kv(kv_text, kv_speaker)
+    if kv_quant:
+        kv_static = quantize_kv_int8(*kv_static)
+    mask_cfg, mask_plain = make_cfg_branch_masks(model.cfg, text_mask,
+                                                 speaker_mask)
+    return StaticPrefill(kv_static, spk_cols, mask_cfg, mask_plain)
+
+
 @torch.inference_mode()
 def sample_euler_cfg_independent_guidances(
     model: dit.EchoDiT,
@@ -223,20 +256,9 @@ def sample_euler_cfg_independent_guidances(
     if truncation_factor is not None:
         x_t = x_t * float(np.float32(truncation_factor))
 
-    text_input_ids = text_input_ids.to(device)
-    text_mask = text_mask.to(device)
-    speaker_mask = speaker_mask.to(device)
-    # One-time prefill (reference: inference.py:464-465), in model dtype;
-    # the static segments are concatenated once, outside the step loop.
-    kv_text = dit.get_kv_cache_text(model, text_input_ids, text_mask, mesh)
-    kv_speaker = dit.get_kv_cache_speaker(
-        model, speaker_latent.to(device=device, dtype=dtype), mesh)
-    kv_static, spk_cols = dit.concat_static_kv(kv_text, kv_speaker)
-    if kv_quant:
-        kv_static = quantize_kv_int8(*kv_static)
-    mask_cfg, mask_plain = make_cfg_branch_masks(cfg, text_mask, speaker_mask)
-
+    pre = prefill_static(model, speaker_latent, speaker_mask, text_input_ids,
+                         text_mask, dtype=dtype, kv_quant=kv_quant, mesh=mesh)
     return run_step_segments(
-        model, x_t, plan, kv_static, spk_cols, mask_cfg, mask_plain,
-        cfg_scale_text=cfg_scale_text, cfg_scale_speaker=cfg_scale_speaker,
+        model, x_t, plan, *pre, cfg_scale_text=cfg_scale_text,
+        cfg_scale_speaker=cfg_scale_speaker,
         speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype, mesh=mesh)

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from typing import Dict, List, Optional
 
+from ..device import card_names
+
 AUDIO_EXTENSIONS = (".wav", ".mp3", ".flac", ".ogg", ".m4a", ".opus")
 
 
@@ -95,18 +97,16 @@ def scan_voices(voices_dir: str) -> List[str]:
 
 
 def _power_limits() -> Optional[List[str]]:
-    """Each card's power limit as nvidia-smi prints it, or None without
-    nvidia-smi or when it fails."""
-    smi = shutil.which("nvidia-smi")
-    if smi is None:
+    """Each card's power limit as nvidia-smi prints it (device.card_names,
+    the last field of each line), or None without nvidia-smi or when it
+    fails."""
+    if shutil.which("nvidia-smi") is None:
         return None
     try:
-        out = subprocess.run(
-            [smi, "--query-gpu=power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=10)
+        lines = card_names()
     except (OSError, subprocess.SubprocessError):
         return None
-    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+    return [line.rsplit(",", 1)[-1].strip() for line in lines if line.strip()]
 
 
 def device_info() -> Dict[str, object]:

@@ -36,7 +36,7 @@ import torch
 
 from ..config import base_dit_config
 from ..device import card_name
-from ..models.dit import init_dit
+from ..models.dit import init_dit, plain_attention
 from ..ops.quant import quantize_dit
 from . import parallel_checks as pc
 from .stream_checks import no_tf32
@@ -63,7 +63,7 @@ def check(dit, seed: int = 7) -> dict:
     with no_tf32():
         bf16 = pc.cfg_forward(dit, req)
         fp32 = copy.deepcopy(dit).float()
-        with pc.plain_attention():
+        with plain_attention():
             ref = pc.cfg_forward(fp32, req)
         del fp32
         w8a8 = pc.cfg_forward(quantize_dit(dit), req)

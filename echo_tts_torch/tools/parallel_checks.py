@@ -28,7 +28,6 @@ power limit and, as its last line, one JSON object with every number.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import dataclasses
 import json
@@ -45,7 +44,7 @@ from ..device import card_names
 from ..models import dit as tdit
 from ..ops import quant
 from ..ops.int8_matmul import int8_matmul_fused, int8_matmul_partial
-from ..ops.joint_attention import fused_joint_attention, joint_attention_plain
+from ..ops.joint_attention import fused_joint_attention
 from ..parallel import inference as pinf
 from ..parallel import mesh as pmesh
 from ..parallel.sp import get_kv_cache_speaker_sp
@@ -223,24 +222,12 @@ def dp_sample_check(model, mesh, req: dict, ref: torch.Tensor,
     return out
 
 
-@contextlib.contextmanager
-def plain_attention():
-    """The DiT's joint attention through its plain version (fp32 models:
-    kernel A takes bf16 only); nothing launches kernel A inside."""
-    attention = tdit.fused_joint_attention
-    tdit.fused_joint_attention = joint_attention_plain
-    try:
-        yield
-    finally:
-        tdit.fused_joint_attention = attention
-
-
 @torch.inference_mode()
 def fp32_refs(model, req: dict) -> tuple:
     """The fp32 copy of `model` (plain attention): its 40-step latents on
     `req` and its CFG forward."""
     fp32 = copy.deepcopy(model).float()
-    with plain_attention():
+    with tdit.plain_attention():
         return sample(fp32, req), cfg_forward(fp32, req)
 
 

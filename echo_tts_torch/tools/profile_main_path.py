@@ -49,7 +49,6 @@ import functools
 import json
 import statistics
 import sys
-import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -66,6 +65,7 @@ from ..sampler.euler import sample_euler_cfg_independent_guidances
 from ..serve import batcher
 from ..serve.presets import growing_schedule, pick_speaker_bucket
 from ..serve.streaming import stream_synthesize
+from ..utils.profiling import wall_ms
 
 VOICE = Path(__file__).resolve().parents[2] / "tests" / "data" / "voice.wav"
 TEXT = ("The quick brown fox jumps over the lazy dog, then reads it a "
@@ -113,19 +113,6 @@ def _device_summary(prof) -> dict:
                              if n in KERNELS.values()}}
 
 
-def _timed(fn, reps: int):
-    """(fn(), [wall ms of each of `reps` runs]), the card synchronised on
-    both sides of each run."""
-    walls = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return out, walls
-
-
 def _profiled(name: str, fn, walls: list, scopes=()) -> dict:
     """One profiled run of fn: wall (median of `walls`), device busy, idle
     share, the top kernels, the hand-written ones, and the device time
@@ -166,7 +153,7 @@ def stream_stages(models, voice) -> list:
         return chunk
 
     first_chunk()                                           # warm-up
-    _, walls = _timed(first_chunk, REPS)
+    _, walls = wall_ms(first_chunk, REPS)
     return [_profiled("stream_first_chunk", first_chunk, walls)]
 
 
@@ -202,8 +189,8 @@ def batch_stages(models, voice) -> list:
             initial_noise=noise, **params)
 
     batch()                                                 # warm-up
-    _, batch_ms = _timed(batch, REPS)
-    _, smp_ms = _timed(sampler, REPS)
+    _, batch_ms = wall_ms(batch, REPS)
+    _, smp_ms = wall_ms(sampler, REPS)
     return [_profiled("batch_b8", batch, batch_ms),
             _profiled("sampler_b8", sampler, smp_ms)]
 
@@ -253,7 +240,7 @@ def train_stages() -> list:
         return step(state, batch, t=t, eps=eps)
 
     train_step()                                            # warm-up
-    _, walls = _timed(train_step, REPS)
+    _, walls = wall_ms(train_step, REPS)
     return [_profiled("train_step_attn_b2", train_step, walls, scopes=(
         ("kernel A forward", "echo_tts::joint_attention"),
         ("kernel A plain-recompute backward", "_KernelWithPlainGradBackward"),
@@ -287,7 +274,7 @@ def main(argv) -> int:
     def encode():
         return pl.get_speaker_latent_and_mask(models, voice)
 
-    (lat, mask), enc_ms = _timed(encode, REPS)
+    (lat, mask), enc_ms = wall_ms(encode, REPS)
     ids, tmask = get_text_input_ids_and_mask([TEXT], MAX_TEXT_LENGTH)
     inputs = [torch.from_numpy(a).to(models.device)
               for a in (lat, mask, ids, tmask)]
@@ -295,12 +282,12 @@ def main(argv) -> int:
     def sample():
         return sample_fn(models, *inputs, 0)
 
-    latents, smp_ms = _timed(sample, REPS)
+    latents, smp_ms = wall_ms(sample, REPS)
 
     def decode():
         return pl.ae_decode(models, latents)
 
-    _, dec_ms = _timed(decode, REPS)
+    _, dec_ms = wall_ms(decode, REPS)
 
     qmodels = dataclasses.replace(models, dit=quantize_dit(models.dit))
     sample_fn_q = functools.partial(pl.euler_sample_fn, kv_quant=True,
@@ -310,7 +297,7 @@ def main(argv) -> int:
         return sample_fn_q(qmodels, *inputs, 0)
 
     sample_int8()                                           # warm-up
-    _, smp8_ms = _timed(sample_int8, REPS)
+    _, smp8_ms = wall_ms(sample_int8, REPS)
     stages = [_profiled("encode", encode, enc_ms),
               _profiled("sampler", sample, smp_ms),
               _profiled("decode", decode, dec_ms),

@@ -35,7 +35,10 @@ whole prefix before every block after the first (get_kv_cache_latent), or
 encoding each block once after it is sampled (latent_kv_append_block).
 The DiT's step loop is the same either way, so this is the whole
 difference.  Host-clock wall time with a sync around each call, median of
-REPS streams.
+REPS streams.  The stream's set-up (schedule, prefix latents) is
+examples/stages.stream_setup, on which
+examples/bench_incremental_crossover times the whole drain of the same
+streams.
 
 The last line is one JSON object with every number.
 """
@@ -46,17 +49,18 @@ import copy
 import json
 import statistics
 import sys
-import time
 
 import torch
 
 from ..device import card_name
+from ..examples.stages import stream_setup
 from ..models import dit as tdit
 from ..models.dac import dac as tdac
 from ..models.dac import streaming as tstream
 from ..ops.res_stack import res_stack_plain
 from ..pipeline import pipeline as pl
 from ..serve.presets import growing_schedule
+from ..utils.profiling import wall_ms
 
 DECODE_TOTAL = 640
 PREFIX_TOTALS = (640, 2560, 4440)
@@ -167,36 +171,26 @@ def decode_checks(models) -> dict:
         bf16_stream_vs_fp32=_compare(b_str, f_one, b_str_st, f_one_st))
 
 
-def _timed(fn) -> float:
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3
-
-
 @torch.inference_mode()
 def prefix_checks(models) -> list:
     model, cfg, dt = models.dit, models.dit_cfg, models.dtype
     ps = cfg.speaker_patch_size
     out = []
     for total in PREFIX_TOTALS:
-        blocks = growing_schedule(total)
-        gen = torch.Generator(device=models.device).manual_seed(total)
-        prefix = torch.randn((1, total, cfg.latent_size), generator=gen,
-                             device=models.device)
+        setup = stream_setup(models, total)
+        blocks, prefix = setup["schedule"], setup["prefix"]
 
         def reencode():
             # before each block after the first, the whole zero-padded buffer
-            return sum(_timed(lambda: tdit.get_kv_cache_latent(model, prefix.to(dt)))
+            return sum(wall_ms(lambda: tdit.get_kv_cache_latent(model, prefix.to(dt)))[1][0]
                        for _ in blocks[1:])
 
         def incremental():
             state = tdit.init_latent_inc_state(cfg, 1, total // ps, dt, models.device)
             ms, start = 0.0, 0
             for n in blocks[:-1]:      # after each block but the last
-                ms += _timed(lambda: tdit.latent_kv_append_block(
-                    model, state, prefix[:, start:start + n].to(dt)))
+                ms += wall_ms(lambda: tdit.latent_kv_append_block(
+                    model, state, prefix[:, start:start + n].to(dt)))[1][0]
                 start += n
             return ms
 

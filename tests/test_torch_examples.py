@@ -3,7 +3,9 @@ the tiny config: generate and streaming_demo write the WAV that
 sample_pipeline and stream_synthesize give at the same seed, bit for bit;
 the long-stream soak's tiny run reports ok over 8 blocks, and each of its
 gates trips on a doctored table or reading; the few-step recipe's tiny
-run writes its report and serves the student; none imports JAX.
+run writes its report and serves the student; none of them, nor the
+measurement modules (bench_*.py, tested in test_torch_bench_examples.py),
+imports JAX, and each refuses the CPU unless asked for it.
 """
 import json
 import os
@@ -15,8 +17,11 @@ import pytest
 import torch
 
 from echo_tts_torch.config import tiny_dac_config, tiny_dit_config
-from echo_tts_torch.examples import (distill_few_step, generate,
-                                     soak_long_stream, streaming_demo)
+from echo_tts_torch.examples import (
+    bench_attention, bench_few_step, bench_incremental_crossover, bench_int8,
+    bench_int8_surfaces, bench_kv_quant, bench_long_reference,
+    bench_stream_int8, bench_train_step, bench_ttfa_breakdown,
+    distill_few_step, generate, soak_long_stream, streaming_demo)
 from echo_tts_torch.pipeline import audio_io
 from echo_tts_torch.pipeline.pipeline import random_models, sample_pipeline
 from echo_tts_torch.serve import models as serve_models
@@ -188,6 +193,12 @@ def test_synthetic_corpus(models):
         assert audio.shape[1] % spl == 0 and 24 <= audio.shape[1] // spl < 40
 
 
+BENCH_MODULES = [bench_kv_quant, bench_int8_surfaces, bench_train_step,
+                 bench_long_reference, bench_few_step, bench_stream_int8,
+                 bench_ttfa_breakdown, bench_incremental_crossover,
+                 bench_attention, bench_int8]
+
+
 @pytest.mark.parametrize("module,argv", [
     (generate, ["--random-weights"]),
     (streaming_demo, ["--random-weights"]),
@@ -195,8 +206,10 @@ def test_synthetic_corpus(models):
     (soak_long_stream, ["--tiny"]),
     (distill_few_step, []),
     (distill_few_step, ["--tiny"]),
-], ids=["generate", "streaming_demo", "soak", "soak_tiny", "distill",
-        "distill_tiny"])
+] + [(m, []) for m in BENCH_MODULES] + [(bench_kv_quant, ["--tiny"])],
+    ids=["generate", "streaming_demo", "soak", "soak_tiny", "distill",
+         "distill_tiny"] + [m.__name__.rsplit(".", 1)[-1]
+                            for m in BENCH_MODULES] + ["bench_tiny"])
 def test_entry_points_refuse_the_cpu_by_default(module, argv, monkeypatch):
     """Without --device or ECHO_DEVICE they load on the card, --tiny too,
     and raise on a machine without one."""
@@ -215,6 +228,7 @@ def test_entry_points_import_no_jax():
             "import echo_tts_torch.examples.distill_few_step\n"
             "import echo_tts_torch.examples.soak_long_stream\n"
             "import echo_tts_torch.tools.check_fullsize\n"
+            + "".join(f"import {m.__name__}\n" for m in BENCH_MODULES) +
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.split('.')[0] == 'echo_tts_tpu']\n"
             "print(bad)\n"
