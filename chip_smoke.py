@@ -61,7 +61,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      models written as the published files: exit 0, its legs passed,
      every number finite, kernels A, B and C launched exactly (2304, 6,
      9216; request_validate gives the arithmetic) at the shapes phase 4
-     holds (VALIDATE_*: kernel A at T = 40, under one static tile);
+     holds (VALIDATE_*: kernel A at T = 40, under one static tile); (y)
+     echo_tts_torch.bench.main (the headline bench) with one warm-up and
+     one timed call a stage: its line with bench.py's 15 keys, card and
+     ranges, every number finite and above 0, each stage's launches of
+     kernels A, B (one-shot and history form) and C exact and their shapes
+     those phase 4 holds (bench_expected gives the arithmetic: kernel A at
+     T = 928 for the one-shot stages and the B = 8 pass at GB = 24 and 8,
+     T = 1238 for the streamed blocks after the first), its line printed
+     on a line of its own;
      then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
      batch of the DataConfig shapes, t and eps fixed, three steps in each
@@ -121,7 +129,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      a yardstick; kernel A at request (t)'s B = 8 shapes (GB = 24 and 8,
      T = 2368, bf16 and int8 K/V) and kernel C at request (u)'s (M =
      15360 and 5120, each (K, N)) and (t)'s (M = 120, K = 2048, N =
-     5888);
+     5888); kernel A at request (y)'s B = 8 pass (GB = 24 and 8, T = 928,
+     200 text columns valid) and its streamed blocks (GB = 3 and 1, S =
+     320 and 80, T = 1238 with 230 and 10 of 310 latent columns valid),
+     and kernel B at (y)'s decode, batch-4 and streamed-block shapes that
+     no other case holds;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 With --kernels-only it skips phase 3 and prints one {"cases": ...} line
 after phase 4 instead, so that two trees' kernels can be timed in one call.
@@ -909,6 +921,21 @@ def phase_kernels():
     att += [attention_case(gb, s, t, seed=160 + gb, n_text=VALIDATE_TEXT_VALID,
                            t_text=VALIDATE_TEXT)
             for gb, s, t in sorted(VALIDATE_ATTN, reverse=True)]
+    # request (y)'s: the B = 8 pass at T = 928 (200 of 768 text columns and
+    # all 160 speaker columns valid), GB = 24 and 8; the streamed blocks
+    # after the first at T = 1238 (BENCH_LAT latent-prefix columns, 230
+    # valid at the last block of 320 and 10 at the block of 80; the text
+    # columns STREAM_TEXT's), GB = 3 and 1
+    att_bench = [attention_case(gb, 640, BENCH_T, seed=190 + i, b=8,
+                                n_text=BENCH_TEXT_VALID)
+                 for i, gb in enumerate((24, 8))]
+    text_stream = stream_text_valid()
+    att_bench += [attention_case(gb, s, BENCH_STREAM_T, seed=192 + i,
+                                 n_lat=BENCH_LAT, lat_valid=valid,
+                                 n_text=text_stream)
+                  for i, (gb, s, valid) in enumerate(
+                      [(3, 320, 230), (1, 320, 230), (3, 80, 10), (1, 80, 10)])]
+    att += att_bench
     # kernel A under grad (the autograd Function, backward by recompute)
     att_bwd = attention_backward_case(3, 640, 778, seed=104)
     att8 += [r for r in edges[:4] if "int8" in r["shape"]]
@@ -956,6 +983,22 @@ def phase_kernels():
                 [(384, 10240, True), (192, 40960, True), (96, 81920, True),
                  (384, 81920, True), (192, 327680, True), (96, 655360, True),
                  (64, 2048, False)])]
+    # request (y)'s kernel B and C shapes (bench_expected) that no case
+    # above holds: the short request's decode (224 latents), the B = 8
+    # decode slices at C = 192, the history form at the blocks of 80 and
+    # 160 latents
+    held = {r["shape"] for r in rst}
+    for i, (shape, (c, length, approx, batch, hist)) in enumerate(
+            sorted(bench_res_shapes().items())):
+        if shape not in held:
+            rst.append(res_stack_history_case(c, length, approx, seed=200 + i)
+                       if hist else res_stack_case(c, length, approx,
+                                                   seed=200 + i, batch=batch))
+    held = {r["shape"] for r in mm}
+    mm += [int8_matmul_case(m, k, n, seed=230 + i) for i, (m, k, n) in
+           enumerate(sorted(set().union(*(
+               e[3] for e in bench_expected(1, 1, 1).values()))))
+           if f"M={m} K={k} N={n}" not in held]
     return att, att8, att_bwd, rst, mm
 
 
@@ -1188,6 +1231,9 @@ def phase_main_path(card: str):
     # (x) the weight-validation gate on these models' files
     for k, v in request_validate(models, counters, n_layers,
                                  n_int8_linears).items():
+        launches[k] += v
+    # (y) the headline bench
+    for k, v in request_bench(models, counters, card).items():
         launches[k] += v
     return launches, req_b
 
@@ -2245,6 +2291,222 @@ def request_validate(models, counters, n_layers: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the headline bench, request (y)
+# ---------------------------------------------------------------------------
+
+# Request (y) runs echo_tts_torch.bench with one warm-up and one timed call
+# a stage.  Its one-shot request is 640 latents over 768 text columns (200
+# valid) and the 640-latent speaker's 160 patches: static K/V T = 928.  Its
+# short request is 224 latents.  Its stream is 1240 latents on
+# STREAM_BLOCKS: the blocks after the first read the carried latent prefix,
+# 1240 / 4 columns (serve/streaming.py sizes it to the stream, where the
+# JAX package pads it to the 1280 bucket), before the text and speaker
+# ones, T = 1238, of which the block's start / 4 are valid.
+BENCH_Y_ARGS = ["--warmup", "1", "--reps", "1"]
+BENCH_T, BENCH_TEXT_VALID = 768 + 640 // 4, 200
+BENCH_LAT = 1240 // 4
+BENCH_STREAM_T = BENCH_LAT + BENCH_T
+BENCH_STREAM_VALID = {(80, 10), (160, 30), (320, 70), (320, 150), (320, 230)}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "prefill_ms",
+              "sampler_ms", "decode_ms", "p50_short_ms", "ttfa_ms",
+              "ttfa_serve_ms", "streamed_rtf", "throughput_rtf_b8",
+              "throughput_rtf_b8_chip", "sampler_int8_ms", "rtf_int8"}
+
+
+def bench_decode_shapes(latents: int, batch: int = 1, history: bool = False,
+                        encode: bool = False) -> set:
+    """Kernel B's (C, L, sin2_poly, batch, history form) for a decode (or,
+    with `encode`, an encode) of `latents` latents: the decoder's blocks
+    at C = 384, 192, 96 (2048 / 8, 2048 / 2 and 2048 samples a latent,
+    sin2_poly), the encoder's at C = 64, 128, 256 (exact sin)."""
+    widths = (((64, 2048), (128, 1024), (256, 256)) if encode
+              else ((384, 256), (192, 1024), (96, 2048)))
+    return {(c, latents * per, not encode, batch, history)
+            for c, per in widths}
+
+
+def bench_expected(n_layers: int, steps: int, calls: int) -> dict:
+    """Per stage of echo_tts_torch.bench, each run `calls` times (warm-up
+    and timed): (launches, kernel A's (GB, S, T), kernel B's shapes,
+    kernel C's (M, K, N)).  A sampler call launches kernel A n_layers x
+    steps times (GB = 3 on the CFG steps, 1 on the rest), a stream that
+    many a block; a decode runs three kernel-B stacks (the decoder's
+    fourth, C = 768, is past the kernel's widths), a streamed block three
+    in the history form, a decode of the B = 8 pass two slices of four;
+    the W8A8 sampler launches kernel C for its eight linears a layer; the
+    served stream's first call encodes the 640-latent voice (three
+    encoder stacks) and the later ones hit the voice cache."""
+    from echo_tts_torch.examples.stages import STREAM_BLOCKS
+    per = n_layers * steps
+    one = {(3, 640, BENCH_T), (1, 640, BENCH_T)}
+    streamed = ({(g, 40, BENCH_T) for g in (3, 1)}
+                | {(g, s, BENCH_STREAM_T) for g in (3, 1) for s in (80, 160, 320)})
+    hist = set().union(*(bench_decode_shapes(b, history=True)
+                         for b in set(STREAM_BLOCKS)))
+    b8 = {(24, 640, BENCH_T), (8, 640, BENCH_T)}
+    mm = {(gb * 640, k, n) for gb in (3, 1) for k, n in DIT_INT8_KN}
+    blocks = len(STREAM_BLOCKS)
+    return {
+        "one_shot": (_want(attn=per * calls, res=3 * calls), one,
+                     bench_decode_shapes(640), set()),
+        "prefill": (_want(), set(), set(), set()),
+        "sampler": (_want(attn=per * calls), one, set(), set()),
+        "decode": (_want(res=3 * calls), set(), bench_decode_shapes(640),
+                   set()),
+        "p50_short": (_want(attn=per * calls, res=3 * calls),
+                      {(3, 224, BENCH_T), (1, 224, BENCH_T)},
+                      bench_decode_shapes(224), set()),
+        "sampler_int8": (_want(attn=per * calls, int8=8 * per * calls), one,
+                         set(), mm),
+        "stream": (_want(attn=blocks * per * calls,
+                         res_stream=3 * blocks * calls), streamed, hist, set()),
+        "serve": (_want(attn=blocks * per * calls, res=3,
+                        res_stream=3 * blocks * calls), streamed,
+                  hist | bench_decode_shapes(640, encode=True), set()),
+        "batch": (_want(attn=per * calls, res=6 * calls), b8,
+                  bench_decode_shapes(640, batch=4), set()),
+        "b8_chip": (_want(attn=per * calls, res=6 * calls), b8,
+                    bench_decode_shapes(640, batch=4), set()),
+    }
+
+
+def bench_res_shapes() -> dict:
+    """Kernel B's shapes in request (y), by phase 4's case name."""
+    shapes = set().union(*(e[2] for e in bench_expected(1, 1, 1).values()))
+    return {res_shape(c, length, approx) + (" history" if hist else "")
+            + (f" batch {batch}" if batch > 1 else ""):
+            (c, length, approx, batch, hist)
+            for c, length, approx, batch, hist in shapes}
+
+
+def stream_text_valid() -> int:
+    """The text columns STREAM_TEXT fills (bytes and markers)."""
+    from echo_tts_torch.examples.stages import STREAM_TEXT
+    from echo_tts_torch.pipeline.text import get_text_input_ids_and_mask
+    return int(get_text_input_ids_and_mask([STREAM_TEXT], 768)[1].sum())
+
+
+def request_bench(models, counters, card: str) -> dict:
+    """Request (y): echo_tts_torch.bench.main on phase 3's (blockwise)
+    models with BENCH_Y_ARGS.  Gates: exit 0; its line holds bench.py's 15
+    keys, card and ranges, every number finite and above 0; each stage's
+    launches of kernels A (bf16 and int8 K/V), B (one-shot and history
+    form) and C exactly bench_expected's (with 24 layers and 40 steps,
+    two calls a stage: A 1920 for the one-shot request, the sampler, the
+    short request, the W8A8 sampler, the B = 8 pass and its device stages,
+    11 520 for the stream and the served stream; B 6 for the one-shot
+    request, the decode and the short request, 12 for each B = 8 form, 3
+    one-shot (the voice's encode) and 36 history-form for the served
+    stream, 36 history-form for the stream; C 15 360 for the W8A8
+    sampler); kernel A's (GB, S, T), B's and C's shapes by stage exactly
+    bench_expected's, the shapes phase 4 holds (BENCH_*); the streamed
+    blocks' valid latent columns BENCH_STREAM_VALID, and the cond row's
+    text columns 200 on the one-shot stages, STREAM_TEXT's on the streams.
+    Prints the bench's line on a line of its own; returns the launches."""
+    import collections
+    from echo_tts_torch import SAMPLER_DEFAULTS, bench
+    from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.models.dac import dac as tdac
+    from echo_tts_torch.ops import quant
+
+    calls = 2                                   # one warm-up, one timed
+    expected = bench_expected(models.dit_cfg.num_layers,
+                              SAMPLER_DEFAULTS["num_steps"], calls)
+    name = "y: echo_tts_torch.bench, one warm-up and one timed call a stage"
+    current = [None]
+    per_stage = {}
+    shapes = collections.defaultdict(lambda: {k: collections.Counter()
+                                              for k in ("attn", "res", "mm")})
+    masks = collections.defaultdict(dict)       # stage -> {id: (T, S, mask)}
+    saved = (bench.stage, tdit.fused_joint_attention, tdac.fused_res_stack,
+             quant.Int8Linear.__dict__["dot"])
+
+    def counting_stage(stage_name, fn, *a):
+        current[0] = stage_name
+        _reset(counters)
+        try:
+            return saved[0](stage_name, fn, *a)
+        finally:
+            per_stage[stage_name] = _read(counters)
+            current[0] = None
+
+    def recording_attention(q, *a, **k):
+        t = a[2].shape[1]
+        shapes[current[0]]["attn"][(q.shape[0], q.shape[1], t)] += 1
+        masks[current[0]].setdefault(id(a[4]), (t, q.shape[1], a[4]))
+        return saved[1](q, *a, **k)
+
+    def recording_res_stack(x, weights, **k):
+        shapes[current[0]]["res"][(x.shape[2], x.shape[1], k["approx_snake"],
+                                   x.shape[0], k.get("history") is not None)] += 1
+        return saved[2](x, weights, **k)
+
+    def recording_dot(x, w8, *a):
+        shapes[current[0]]["mm"][(x.numel() // x.shape[-1], x.shape[-1],
+                                  w8.shape[0])] += 1
+        return saved[3].__func__(x, w8, *a)
+
+    bench.stage = counting_stage
+    tdit.fused_joint_attention = recording_attention
+    tdac.fused_res_stack = recording_res_stack
+    quant.Int8Linear.dot = staticmethod(recording_dot)
+    try:
+        line = run_bench(bench, BENCH_Y_ARGS, models)
+    finally:
+        bench.stage, tdit.fused_joint_attention, tdac.fused_res_stack = saved[:3]
+        quant.Int8Linear.dot = saved[3]
+    launches = dict.fromkeys(counters, 0)
+    for got in per_stage.values():
+        for k, v in got.items():
+            launches[k] += v
+
+    failures = []
+    numbers = [v for k, v in line.items() if k in BENCH_KEYS
+               and not isinstance(v, str)]
+    if (set(line) != BENCH_KEYS | {"card", "ranges"} or len(numbers) != 13
+            or not all(math.isfinite(v) and v > 0 for v in numbers)):
+        failures.append(f"keys {sorted(line)} or a number not above 0")
+    for stage_name, (want, attn, res, mm) in expected.items():
+        got = per_stage.get(stage_name)
+        s = shapes[stage_name]
+        if (got != want or set(s["attn"]) != attn or set(s["res"]) != res
+                or set(s["mm"]) != mm):
+            failures.append(
+                f"{stage_name}: launches {got}, want {want}; A (GB, S, T) "
+                f"{dict(s['attn'])}, want {sorted(attn)}; B {dict(s['res'])}, "
+                f"want {sorted(res)}; C {dict(s['mm'])}, want {sorted(mm)}")
+    if set(per_stage) != set(expected):
+        failures.append(f"stages {sorted(per_stage)}")
+    # the cond row's valid columns: text on every stage but the batch's
+    # (one text a request), the latent prefix on the streamed blocks
+    text_stream = stream_text_valid()
+    for stage_name, seen in masks.items():
+        want_text = (text_stream if stage_name in ("stream", "serve")
+                     else BENCH_TEXT_VALID)
+        for t, s, mask in seen.values():
+            lat = BENCH_LAT if t == BENCH_STREAM_T else 0
+            text = int(mask[0, lat:lat + 768].sum())
+            if stage_name != "batch" and text != want_text:
+                failures.append(f"{stage_name}: T = {t}, {text} text columns "
+                                f"valid, want {want_text}")
+    for stage_name in ("stream", "serve"):
+        valid = {(s, int(m[0, :BENCH_LAT].sum()))
+                 for t, s, m in masks[stage_name].values()
+                 if t == BENCH_STREAM_T}
+        if valid != BENCH_STREAM_VALID:
+            failures.append(f"{stage_name}: the streamed blocks' (S, valid "
+                            f"latent columns) {sorted(valid)}")
+    if failures:
+        raise AssertionError(f"{name}: {failures}")
+    log(json.dumps(line))
+    log(f"  request {name}: launches by stage {per_stage}; stage sum "
+        f"(prefill + sampler + decode) over the one-shot wall "
+        f"{(line['prefill_ms'] + line['sampler_ms'] + line['decode_ms']) / (1e3 * 640 * models.dac_cfg.frame_length / models.dac_cfg.sample_rate / line['value']):.4f} "
+        f"({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3, continued: training, data, distillation, the bundle, the demo
 # ---------------------------------------------------------------------------
 
@@ -3128,6 +3390,12 @@ def main(argv) -> int:
             validate={r["shape"]: summary(r) for r in att
                       if r["shape"].startswith(("GB=3 S=160 T=40 ",
                                                 "GB=1 S=160 T=40 "))},
+            # request (y): the B = 8 pass at T = 928, the streamed blocks
+            # at T = 1238
+            bench={r["shape"]: summary(r) for r in att
+                   if r["shape"].startswith(("GB=24 S=640 T=928",
+                                             "GB=8 S=640 T=928"))
+                   or f" T={BENCH_STREAM_T} " in r["shape"]},
             launches_per_train_step={
                 mode: r["launches_per_step"]
                 for mode, r in trained["train"].items()},
@@ -3156,7 +3424,10 @@ def main(argv) -> int:
             # request (x)'s 32-latent round trip
             validate={r["shape"]: summary(r, "unrolled_ms") for r in rst
                       if any(r["shape"] == res_shape(*v)
-                             for v in VALIDATE_RES)}),
+                             for v in VALIDATE_RES)},
+            # request (y)'s decodes, batch-4 slices and streamed blocks
+            bench={r["shape"]: summary(r, "unrolled_ms") for r in rst
+                   if r["shape"] in bench_res_shapes()}),
         # M=1920 (a CFG step), w1/w3 (2048 -> 5888); max_abs_err is the
         # fp32 output's
         kernel_entry(

@@ -1,4 +1,5 @@
-"""What the bench modules (bench_*.py) share: their arguments, device and
+"""What the bench modules (bench_*.py, and the headline bench,
+echo_tts_torch/bench.py) share: their arguments, device and
 models; the headline request's seeded inputs; the stages they time (the
 prefill of the static K/V and the Euler step loop over them, as the JAX
 scripts' jitted `prefill` and `sampler` programs compute them, through
@@ -62,9 +63,17 @@ STREAM_TEXT = ("The quick brown fox jumps over the lazy dog while the "
                "orchestra tunes quietly in the hall, and a narrator "
                "describes the scene in a calm, steady voice for the "
                "benchmark recording. ") * 3
+# bench.py's B = 8 pass: one text a request, each a different sentence
+BATCH_TEXTS = [
+    "Request number %d reads a different sentence so the batch is not "
+    "degenerate; the narrator keeps an even pace throughout." % i
+    for i in range(8)
+]
 
 
-def parser(doc: str, reps: int = 3) -> argparse.ArgumentParser:
+def parser(doc: str, reps: Optional[int] = 3) -> argparse.ArgumentParser:
+    """The bench modules' arguments; reps=None leaves --reps unset, for a
+    module whose stages each have their own count."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: ECHO_DEVICE, else cuda)")
@@ -79,7 +88,7 @@ def parser(doc: str, reps: int = 3) -> argparse.ArgumentParser:
 
 def parse(ap: argparse.ArgumentParser, argv) -> argparse.Namespace:
     args = ap.parse_args(argv)
-    if args.reps < 1 or args.warmup < 0:
+    if (args.reps is not None and args.reps < 1) or args.warmup < 0:
         ap.error("--reps must be >= 1 and --warmup >= 0")
     return args
 
@@ -211,18 +220,23 @@ def stream_setup(models, total: int) -> dict:
 
 
 def stream_once(models: EchoModels, speaker_latent: np.ndarray,
-                blocks: Sequence[int], sampler_params: dict
-                ) -> Tuple[float, float]:
+                blocks: Sequence[int], sampler_params: dict,
+                speaker_mask: Optional[np.ndarray] = None,
+                audio: Optional[list] = None) -> Tuple[float, float]:
     """One stream of STREAM_TEXT through stream_synthesize; (seconds to the
-    first block's audio on the host, seconds to the last)."""
+    first block's audio on the host, seconds to the last).  `audio`, when
+    given, receives each block's audio."""
     t0 = time.perf_counter()
     ttfa = None
-    for _ in stream_synthesize(models, STREAM_TEXT,
-                               speaker_latent=speaker_latent,
-                               chunk_sizes=list(blocks), seed=0,
-                               sampler_params=sampler_params):
+    for chunk in stream_synthesize(models, STREAM_TEXT,
+                                   speaker_latent=speaker_latent,
+                                   speaker_mask=speaker_mask,
+                                   chunk_sizes=list(blocks), seed=0,
+                                   sampler_params=sampler_params):
         if ttfa is None:
             ttfa = time.perf_counter() - t0
+        if audio is not None:
+            audio.append(chunk.audio)
     return ttfa, time.perf_counter() - t0
 
 

@@ -5,7 +5,8 @@ the long-stream soak's tiny run reports ok over 8 blocks, and each of its
 gates trips on a doctored table or reading; the few-step recipe's tiny
 run writes its report and serves the student; none of them, nor the
 measurement modules (bench_*.py, tested in test_torch_bench_examples.py),
-imports JAX, and each refuses the CPU unless asked for it.
+imports JAX, and each of them, the headline bench (bench.py, tested in
+test_torch_bench.py) too, refuses the CPU unless asked for it.
 """
 import json
 import os
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from echo_tts_torch import bench
 from echo_tts_torch.config import tiny_dac_config, tiny_dit_config
 from echo_tts_torch.examples import (
     bench_attention, bench_few_step, bench_incremental_crossover, bench_int8,
@@ -206,10 +208,11 @@ BENCH_MODULES = [bench_kv_quant, bench_int8_surfaces, bench_train_step,
     (soak_long_stream, ["--tiny"]),
     (distill_few_step, []),
     (distill_few_step, ["--tiny"]),
-] + [(m, []) for m in BENCH_MODULES] + [(bench_kv_quant, ["--tiny"])],
+] + [(m, []) for m in BENCH_MODULES] + [(bench_kv_quant, ["--tiny"]),
+                                          (bench, [])],
     ids=["generate", "streaming_demo", "soak", "soak_tiny", "distill",
          "distill_tiny"] + [m.__name__.rsplit(".", 1)[-1]
-                            for m in BENCH_MODULES] + ["bench_tiny"])
+                            for m in BENCH_MODULES] + ["bench_tiny", "bench"])
 def test_entry_points_refuse_the_cpu_by_default(module, argv, monkeypatch):
     """Without --device or ECHO_DEVICE they load on the card, --tiny too,
     and raise on a machine without one."""
