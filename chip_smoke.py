@@ -56,7 +56,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      first out-of-memory point, 24 kernel A launches a step, its FLOP
      count the JAX script's; (w) the other seven (long reference, few
      step, stream int8, TTFA breakdown, the latent prefix over a
-     1280-latent stream, the attention sweep, the int8 scans); (x)
+     640-latent stream, the attention sweep, the int8 scans); (x)
      tools/validate_weights.main --no-reference --int8-report on those
      models written as the published files: exit 0, its legs passed,
      every number finite, kernels A, B and C launched exactly (2304, 6,
@@ -69,7 +69,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      those phase 4 holds (bench_expected gives the arithmetic: kernel A at
      T = 928 for the one-shot stages and the B = 8 pass at GB = 24 and 8,
      T = 1238 for the streamed blocks after the first), its line printed
-     on a line of its own;
+     on a line of its own; (z) the compiled-program layer
+     (echo_tts_torch/utils/programs.py: the sampler, the codec and the
+     bench's stages as one CUDA graph per key and shape, which every
+     request above already ran through, their launch counts exact under
+     replay): request (b)'s inputs in bf16, with int8 static K/V, and in
+     request (d)'s int8 modes, replayed bit for bit their eager run, and a second
+     input set at the same key bit for bit its own eager run; the default
+     warm-up manifest with batch_sizes=(8,) through
+     serve.handler.warmup_compile, each entry's capture seconds, the
+     shared pool's bytes and memory_reserved, then a second pass that
+     captures nothing and reserves no more (request_programs says each
+     gate);
      then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
      batch of the DataConfig shapes, t and eps fixed, three steps in each
@@ -137,6 +148,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 With --kernels-only it skips phase 3 and prints one {"cases": ...} line
 after phase 4 instead, so that two trees' kernels can be timed in one call.
+With --programs-only it runs request (b), then request (z) alone, and
+prints one {"programs": ...} line.
 Imports nothing of JAX or of echo_tts_tpu.
 """
 from __future__ import annotations
@@ -263,6 +276,64 @@ def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0) -> dict:
     return {"joint_attention": attn, "joint_attention_kv8": kv8,
             "int8_matmul": int8, "int8_matmul_partial": partial,
             "res_stack": res, "res_stack_stream": res_stream}
+
+
+# The sampler, the codec's encode and decode and the bench's stages run as
+# captured programs (echo_tts_torch/utils/programs.py): a program's first
+# call runs eagerly, then its capture calls the kernels' wrappers without
+# launching anything, and its replays launch them without calling Python.
+# The launch counters stay exact (the programs add each replay's
+# launches); the requests below that record the wrappers' calls by shape
+# do so through `note`, which a program's capture keeps and each of its
+# replays runs, and read tensor values only outside a capture.
+_CAPTURE_NOTES = None
+
+
+def capturing() -> bool:
+    import torch
+    return torch.cuda.is_current_stream_capturing()
+
+
+def note(record) -> None:
+    """record() for a call made now, outside a capture; during a program's
+    capture, kept and run on each of the program's replays instead."""
+    if _CAPTURE_NOTES is not None and capturing():
+        _CAPTURE_NOTES.append(record)
+    else:
+        record()
+
+
+def install_program_notes() -> None:
+    """Let programs keep the notes their captures take (`note`)."""
+    from echo_tts_torch.utils import programs
+    prog = programs.Program
+    capture, run = prog.capture, prog.run
+
+    def noting_capture(self, *a, **k):
+        global _CAPTURE_NOTES
+        _CAPTURE_NOTES = []
+        try:
+            capture(self, *a, **k)
+        finally:
+            self.notes, _CAPTURE_NOTES = _CAPTURE_NOTES, None
+
+    def noting_run(self, *a, **k):
+        out = run(self, *a, **k)
+        if self.graph is not None:
+            for record in getattr(self, "notes", ()):
+                record()
+        return out
+
+    prog.capture, prog.run = noting_capture, noting_run
+
+
+def fresh_programs() -> None:
+    """Drop every program, so that the next call at each key runs eagerly
+    (and is recorded as it runs); the pool's memory is returned."""
+    import torch
+    from echo_tts_torch.utils import programs
+    programs.clear_all()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1235,6 +1306,9 @@ def phase_main_path(card: str):
     # (y) the headline bench
     for k, v in request_bench(models, counters, card).items():
         launches[k] += v
+    # (z) the compiled-program layer
+    for k, v in request_programs(models, req_b, counters, card).items():
+        launches[k] += v
     return launches, req_b
 
 
@@ -1617,13 +1691,16 @@ def request_batch(models, counters, card: str) -> dict:
         return run_pass(models_, batch, *a, **k)
 
     def recording_attention(q, *a, **k):
-        attn_rows[(q.shape[0], a[2].shape[0])] += 1
+        key = (q.shape[0], a[2].shape[0])
+        note(lambda: attn_rows.update([key]))
         return run_attention(q, *a, **k)
 
     def recording_res_stack(x, *a, **k):
-        res_rows.append(x.shape[0])
+        rows = x.shape[0]
+        note(lambda: res_rows.append(rows))
         return run_res_stack(x, *a, **k)
 
+    fresh_programs()
     server = MicroBatchServer(models, max_batch=8, max_wait_s=0.5)
     barrier = threading.Barrier(len(reqs))
     futures = [None] * len(reqs)
@@ -1858,6 +1935,13 @@ def request_soak(models, counters, card: str) -> dict:
         return run_attention(q, *a, **k)
 
     name = "r: examples.soak_long_stream, 16 x 320 latents"
+    import torch
+    from echo_tts_torch.utils import programs
+    log(f"  request r: before it, memory_allocated "
+        f"{torch.cuda.memory_allocated()}, memory_reserved "
+        f"{torch.cuda.memory_reserved()}, the programs' pool "
+        f"{programs.pool_bytes(models.device)} bytes, programs "
+        f"{programs.stats()}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "soak.json")
         tdit.fused_joint_attention = recording_attention
@@ -1948,8 +2032,9 @@ def request_fullsize(models, counters, n_layers: int,
 # _useful_fwd_tflop(base_dit_config(), 1)); request (v) holds the port's to it
 TRAIN_FWD_TFLOP_B1 = 2.51984871424
 TRAIN_SWEEP_MAX_B = 16
-# (w) streams bench_incremental_crossover at this total (7 blocks)
-CROSSOVER_TOTAL = 1280
+# (w) streams bench_incremental_crossover at this total (5 blocks; 1280,
+# 7 blocks, until the programs' captures lengthened the script)
+CROSSOVER_TOTAL = 640
 # one timed call of each stage and no warm-up: the requests before them
 # have run every kernel and code path these reach
 BENCH_REPS = ["--warmup", "0", "--reps", "1"]
@@ -2210,20 +2295,25 @@ def request_validate(models, counters, n_layers: int,
              quant.Int8Linear.__dict__["dot"])
 
     def recording_attention(q, *a, **k):
-        shapes["attn"][(q.shape[0], q.shape[1], a[2].shape[1])] += 1
-        cond = a[4][0]
-        cond_columns.add((int(cond[:VALIDATE_TEXT].sum()),
-                          int(cond[VALIDATE_TEXT:].sum())))
+        key = (q.shape[0], q.shape[1], a[2].shape[1])
+        note(lambda: shapes["attn"].update([key]))
+        if not capturing():
+            cond = a[4][0]
+            cond_columns.add((int(cond[:VALIDATE_TEXT].sum()),
+                              int(cond[VALIDATE_TEXT:].sum())))
         return saved[0](q, *a, **k)
 
     def recording_res_stack(x, weights, **k):
-        shapes["res"][(x.shape[2], x.shape[1], k["approx_snake"])] += 1
+        key = (x.shape[2], x.shape[1], k["approx_snake"])
+        note(lambda: shapes["res"].update([key]))
         return saved[1](x, weights, **k)
 
     def recording_dot(x, w8, *a):
-        shapes["mm"][(x.numel() // x.shape[-1], x.shape[-1], w8.shape[0])] += 1
+        key = (x.numel() // x.shape[-1], x.shape[-1], w8.shape[0])
+        note(lambda: shapes["mm"].update([key]))
         return saved[2].__func__(x, w8, *a)
 
+    fresh_programs()
     work = tempfile.mkdtemp(prefix="echo_validate_")
     try:
         t0 = time.perf_counter()
@@ -2423,6 +2513,9 @@ def request_bench(models, counters, card: str) -> dict:
 
     def counting_stage(stage_name, fn, *a):
         current[0] = stage_name
+        # each stage's first call at a key runs eagerly, where its tensors
+        # are recorded, and its later calls replay
+        fresh_programs()
         _reset(counters)
         try:
             return saved[0](stage_name, fn, *a)
@@ -2432,18 +2525,21 @@ def request_bench(models, counters, card: str) -> dict:
 
     def recording_attention(q, *a, **k):
         t = a[2].shape[1]
-        shapes[current[0]]["attn"][(q.shape[0], q.shape[1], t)] += 1
-        masks[current[0]].setdefault(id(a[4]), (t, q.shape[1], a[4]))
+        key = (q.shape[0], q.shape[1], t)
+        note(lambda: shapes[current[0]]["attn"].update([key]))
+        if not capturing():
+            masks[current[0]].setdefault(id(a[4]), (t, q.shape[1], a[4]))
         return saved[1](q, *a, **k)
 
     def recording_res_stack(x, weights, **k):
-        shapes[current[0]]["res"][(x.shape[2], x.shape[1], k["approx_snake"],
-                                   x.shape[0], k.get("history") is not None)] += 1
+        key = (x.shape[2], x.shape[1], k["approx_snake"], x.shape[0],
+               k.get("history") is not None)
+        note(lambda: shapes[current[0]]["res"].update([key]))
         return saved[2](x, weights, **k)
 
     def recording_dot(x, w8, *a):
-        shapes[current[0]]["mm"][(x.numel() // x.shape[-1], x.shape[-1],
-                                  w8.shape[0])] += 1
+        key = (x.numel() // x.shape[-1], x.shape[-1], w8.shape[0])
+        note(lambda: shapes[current[0]]["mm"].update([key]))
         return saved[3].__func__(x, w8, *a)
 
     bench.stage = counting_stage
@@ -2504,6 +2600,182 @@ def request_bench(models, counters, card: str) -> dict:
         f"{(line['prefill_ms'] + line['sampler_ms'] + line['decode_ms']) / (1e3 * 640 * models.dac_cfg.frame_length / models.dac_cfg.sample_rate / line['value']):.4f} "
         f"({card})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the compiled-program layer, request (z)
+# ---------------------------------------------------------------------------
+
+# request (z)'s second input set: request (b)'s shapes (the text padded to
+# 768 bytes, the voice's latents), another text and seed
+Z_TEXT = "A second request at the same key reads another sentence aloud."
+Z_SEED = 101
+# (W8A8 DiT, int8 static K/V): bf16; kv_quant; request (d)'s int8 modes
+Z_MODES = {"bf16": (False, False), "kv8": (False, True),
+           "w8a8_kv8": (True, True)}
+
+
+def manifest_launches(manifest, n_layers: int, steps: int) -> dict:
+    """Kernel launches of one warmup_compile pass over `manifest`: the
+    640-latent voice encode (3 stacks), then per entry a sampler call (n
+    layers x steps, a stream's per block) and its decodes (3 stacks a
+    decode of up to 4 rows, 3 history-form stacks a streamed block)."""
+    attn, res, res_stream = 0, 3, 0
+    for e in manifest:
+        if e["kind"] == "stream":
+            attn += len(e["chunk_sizes"]) * n_layers * steps
+            res_stream += 3 * len(e["chunk_sizes"])
+        else:
+            attn += n_layers * steps
+            res += 3 * -(-e.get("batch_size", 1) // 4)
+    return _want(attn=attn, res=res, res_stream=res_stream)
+
+
+def request_programs(models, req_b: dict, counters, card: str) -> dict:
+    """Request (z): the compiled-program layer (utils/programs.py).  After
+    dropping every program:
+
+      * request (b)'s inputs in each of Z_MODES (bf16; int8 static K/V;
+        the W8A8 DiT with int8 static K/V, kernel C inside) through
+        pipeline.euler_sample_fn: the first call runs eagerly and captures
+        its program, the second replays it, bit for bit the first (and, in
+        bf16, request (b)'s latents); Z_TEXT at Z_SEED (the same shapes,
+        so the same program) replayed is bit for bit its own eager run
+        (after the programs are dropped again), which catches a request's
+        value baked into a graph; each call's launches exact (kernel A 960
+        bf16 or int8-K/V, kernel C 7680 under W8A8); in bf16 the decode's
+        replay bit for bit its eager run (kernel B 3 a call);
+      * serve.handler.warmup_compile over the default manifest with
+        batch_sizes=(8,) at full width: each entry's seconds and its
+        programs' capture seconds, the shared pool's bytes and
+        torch.cuda.memory_reserved() after it (the caching allocator's
+        free blocks returned first); its launches exact
+        (manifest_launches: eager first calls and replays, the captures
+        launching nothing);
+      * a second pass over the manifest: no capture (every cache's misses
+        unchanged), memory_reserved not above the first pass's, the same
+        launches, all of the sampler's and the codec's from replays.
+
+    Then drops every program, so that training starts with the pool
+    freed.  Returns the launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.ops.quant import quantize_dit
+    from echo_tts_torch.pipeline import pipeline as pl
+    from echo_tts_torch.pipeline.text import get_text_input_ids_and_mask
+    from echo_tts_torch.serve import handler as th
+    from echo_tts_torch.serve.presets import warmup_manifest
+    from echo_tts_torch.utils import programs
+
+    name = "z: the compiled-program layer"
+    n_layers, steps = models.dit_cfg.num_layers, SAMPLER_DEFAULTS["num_steps"]
+    per_call = n_layers * steps
+    dev = models.device
+    total = dict.fromkeys(counters, 0)
+    failures = []
+
+    def counted(fn, want, what):
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        got = _read(counters)
+        for k, v in got.items():
+            total[k] += v
+        if got != want:
+            failures.append(f"{what}: launches {got}, want {want}")
+        return out
+
+    x = (req_b["spk"], req_b["smask"], req_b["ids"], req_b["tmask"],
+         req_b["seed"])
+    ids, tmask = get_text_input_ids_and_mask([Z_TEXT], 768)
+    y = (req_b["spk"], req_b["smask"], torch.from_numpy(ids).to(dev),
+         torch.from_numpy(tmask).to(dev), Z_SEED)
+    qdit = quantize_dit(models.dit)
+    for mode, (w8a8, kv8) in Z_MODES.items():
+        m = dataclasses.replace(models, dit=qdit) if w8a8 else models
+        fn = functools.partial(pl.euler_sample_fn, kv_quant=kv8,
+                               **SAMPLER_DEFAULTS)
+        want = _want(attn=0 if kv8 else per_call, kv8=per_call if kv8 else 0,
+                     int8=8 * per_call if w8a8 else 0)
+        fresh_programs()
+        misses = programs.stats()["euler"]["misses"]
+        eager_x = counted(lambda: fn(m, *x), want, f"{mode} eager")
+        replay_x = counted(lambda: fn(m, *x), want, f"{mode} replay")
+        replay_y = counted(lambda: fn(m, *y), want, f"{mode} replay, 2nd set")
+        if programs.stats()["euler"]["misses"] != misses + 1:
+            failures.append(f"{mode}: {programs.stats()['euler']} after one "
+                            "key's three calls")
+        fresh_programs()
+        eager_y = counted(lambda: fn(m, *y), want, f"{mode} eager, 2nd set")
+        same = dict(replay=torch.equal(replay_x, eager_x),
+                    second_set=torch.equal(replay_y, eager_y),
+                    sets_differ=not torch.equal(replay_x, replay_y))
+        if mode == "bf16":
+            same["request_b"] = torch.equal(eager_x, req_b["latents"])
+            fresh_programs()
+            decode_want = _want(res=3)
+            eager_a = counted(lambda: pl.ae_decode(models, eager_x),
+                              decode_want, "decode eager")
+            replay_a = counted(lambda: pl.ae_decode(models, eager_x),
+                               decode_want, "decode replay")
+            same["decode_replay"] = torch.equal(replay_a, eager_a)
+        if not all(same.values()):
+            failures.append(f"{mode}: bit-equal {same}")
+        log(f"  request z, {mode}: replay against the eager run, bit for "
+            f"bit: {same}")
+    del qdit
+
+    manifest = warmup_manifest((8,))
+    want = manifest_launches(manifest, n_layers, steps)
+    fresh_programs()
+    gc.collect()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    passes = []
+    for i in range(2):
+        captures = len(programs.CAPTURES)
+        t0 = time.perf_counter()
+        report = counted(lambda: th.warmup_compile(models, batch_sizes=(8,)),
+                         want, f"warm-up pass {i + 1}")
+        seconds = time.perf_counter() - t0
+        # what the caching allocator keeps: the programs' pool, the models,
+        # the caches; garbage and free blocks returned first
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        passes.append(dict(seconds=seconds, stats=programs.stats(),
+                           reserved=torch.cuda.memory_reserved(dev),
+                           pool=programs.pool_bytes(dev),
+                           captured=len(programs.CAPTURES) - captures,
+                           capture_s=sum(s for r in report
+                                         for s in r["captures"])))
+        for r in report:
+            e = r["entry"]
+            log(f"  request z, warm-up pass {i + 1}: {e['kind']} "
+                f"{ {k: v for k, v in e.items() if k != 'kind'} }: "
+                f"{r['seconds']:.2f} s, capture seconds {r['captures']}, "
+                f"pool {r['pool_bytes']} bytes")
+    first, second = passes
+    if (second["captured"] or first["captured"] == 0
+            or any(second["stats"][c]["misses"] != first["stats"][c]["misses"]
+                   for c in first["stats"])
+            or second["reserved"] > first["reserved"]):
+        failures.append(f"second pass: {second}, first {first}")
+    log(f"  request z: default manifest with batch_sizes=(8,), "
+        f"{len(manifest)} entries: pass 1 {first['seconds']:.1f} s "
+        f"({first['captured']} programs captured, {first['capture_s']:.2f} s "
+        f"of capture), pass 2 {second['seconds']:.1f} s (captured "
+        f"{second['captured']}); programs {second['stats']}; pool "
+        f"{first['pool']} bytes; memory_reserved {reserved0} before, "
+        f"{first['reserved']} after pass 1, {second['reserved']} after pass 2 "
+        f"({card})")
+    fresh_programs()
+    if failures:
+        raise AssertionError(f"{name}: {failures}")
+    log(f"  request {name}: launches {total}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3308,11 +3580,39 @@ def kernel_entry(name, source, replaces, cases, main, launches, **extra):
                 library_ms=main["library_ms"], shape=main["shape"], **extra)
 
 
+def programs_only(card: str) -> int:
+    """Request (b) at full width, then request (z) alone; one
+    {"programs": ...} line with every cache's counts."""
+    import torch
+    from echo_tts_torch import SAMPLER_DEFAULTS
+    from echo_tts_torch.pipeline import audio_io, pipeline as pl
+    from echo_tts_torch.utils import programs
+
+    models = pl.random_models()
+    req_b = {}
+    sample_fn = functools.partial(pl.euler_sample_fn, **SAMPLER_DEFAULTS)
+
+    def recording_b(models_, spk, smask, ids, tmask, seed):
+        out = sample_fn(models_, spk, smask, ids, tmask, seed)
+        req_b.update(spk=spk, smask=smask, ids=ids, tmask=tmask, seed=seed,
+                     latents=out.clone())
+        return out
+
+    pl.sample_pipeline(models, recording_b, TEXT, audio_io.load_audio(VOICE), 1)
+    torch.cuda.synchronize()
+    request_programs(models, req_b, kernel_counters(), card)
+    print(json.dumps({"programs": programs.stats()}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     import torch
     card = phase_device()
     phase_build()
+    install_program_notes()
+    if "--programs-only" in argv:
+        return programs_only(card)
     kernels_only = "--kernels-only" in argv
     # the main path runs before the kernels are timed: torch.profiler, which
     # times them, leaves tracing attached that slows the host-bound
@@ -3454,6 +3754,11 @@ def main(argv) -> int:
             launches["int8_matmul_partial"],
             wo=summary(mm_partial[0]), prepass_ms=mm_partial[1]["prepass_ms"]),
     ]
+    from echo_tts_torch.utils import programs
+    log(f"programs: {len(programs.CAPTURES)} captured in "
+        f"{sum(s for _, s in programs.CAPTURES):.1f} s "
+        f"({ {c.name: (c.misses, c.hits) for c in programs.caches()} } "
+        f"misses, hits)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

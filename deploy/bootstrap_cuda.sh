@@ -16,7 +16,9 @@ print("[bootstrap] cuda:", torch.cuda.is_available(),
 PY
 
 # Load the models, build the three kernels (nvcc, once per build
-# directory) and answer one short request before taking traffic.
+# directory), capture the warm-up manifest's programs and serve in that
+# process, where the captured programs live; if it fails or ends, serve
+# without them.
 python -m echo_tts_torch.serve.handler --warmup-compile || \
     echo "[bootstrap] warmup failed; starting anyway"
 

@@ -39,10 +39,12 @@ plus `card` (the card's name and power limit) and `ranges` (each timed
 key's smallest and largest run).  Each stage runs one untimed call
 first; --warmup and --reps replace every stage's counts when given.  A
 stage is clocked on the host between two synchronises of the card
-(utils.profiling.wall_ms).  bench.py's scalar-checksum barriers and
-compile cache have no counterpart: a synchronise ends the card's work,
-and eager PyTorch compiles nothing per shape (the kernels are built on
-first use).  Each stage's output is checked (finite; the batch's eight
+(utils.profiling.wall_ms).  bench.py's scalar-checksum barriers have no
+counterpart: a synchronise ends the card's work.  As bench.py's stages
+are jitted programs, the sampler, the codec and the stages here are
+captured programs (utils/programs.py, a CUDA graph per key and shape):
+a stage's untimed call runs eagerly and captures, the timed calls
+replay, and the streams run eagerly.  Each stage's output is checked (finite; the batch's eight
 results; the stream's six blocks of 1240 x 2048 samples); a stage that
 fails exits 1 with its name and no line.
 

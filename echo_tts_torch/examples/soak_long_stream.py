@@ -21,9 +21,10 @@ of 640 random latents (160 patch columns).  It gates on:
 
 Before the measured stream a warm pass streams the first 2 blocks only:
 the JAX script's warm pass compiles every XLA program the schedule
-reaches, while eager PyTorch compiles nothing per shape and the kernels are
-built on first use, so two blocks (the latent-free first block and one
-with a prefix) reach every code path.
+reaches, while the port's streams run eagerly (their blockwise programs
+are not captured yet) and the kernels are built on first use, so two
+blocks (the latent-free first block and one with a prefix) reach every
+code path.
 
 The report is one JSON line (also written to --report): the per-block
 table (block ms and elapsed seconds on the host clock, each block's wait

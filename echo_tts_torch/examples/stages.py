@@ -9,9 +9,13 @@ the serving schedule); and one JSON line out.
 A stage is clocked on the host between two synchronises of the card
 (utils.profiling.wall_ms): `--warmup` calls first, then the median of
 `--reps` calls, with the range of the runs beside it under "ranges".
-The JAX scripts' scalar-checksum barriers and compile caches have no
-counterpart: a synchronise ends the card's work, and eager PyTorch
-compiles nothing per shape (the kernels are built on first use).
+The JAX scripts' scalar-checksum barriers have no counterpart: a
+synchronise ends the card's work.  As the JAX scripts jit each stage,
+`prefill` and `sampler` here are captured programs (utils/programs.py,
+one CUDA graph per model, key and shapes), as the serving sampler is:
+a stage's first call at a shape runs eagerly and captures it, which the
+warm-up call pays, and the timed calls replay it, so that the stages and
+the one-shot request (sampler/euler._euler_core) are timed alike.
 
 --tiny runs the tiny config in fp32 at short lengths (TINY); the tiny
 heads (16 wide, fp32) are not kernel A's, so --tiny needs --device cpu.
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -36,9 +41,11 @@ from ..device import card_name, resolve_device
 from ..models import dit
 from ..pipeline.pipeline import EchoModels, random_models
 from ..sampler.euler import (StaticPrefill, build_step_plan,
-                             prefill_static, run_step_segments)
+                             prefill_static, run_step_segments,
+                             step_layer_scales)
 from ..serve.presets import growing_schedule, pick_stream_total_bucket
 from ..serve.streaming import stream_synthesize
+from ..utils import programs
 from ..utils.profiling import wall_ms
 
 
@@ -174,14 +181,32 @@ def step_plan(num_steps: int, cfg_min_t: float = 0.5, cfg_max_t: float = 1.0):
                            None)
 
 
+# The stages' programs (module docstring), as many as the sampler's
+STAGE_PROGRAMS = programs.ProgramCache("stages", 64)
+
+
+@torch.inference_mode()
 def prefill(model: dit.EchoDiT, inputs: Dict[str, torch.Tensor], dtype,
             kv_quant: bool = False) -> StaticPrefill:
     """The requests' static K/V [text, speaker] (int8 when kv_quant), their
     speaker columns and CFG branch masks: sampler/euler.prefill_static,
-    the serving sampler's own prefill."""
-    return prefill_static(model, inputs["speaker_latent"],
-                          inputs["speaker_mask"], inputs["text_ids"],
-                          inputs["text_mask"], dtype=dtype, kv_quant=kv_quant)
+    the serving sampler's own prefill, as one program."""
+    return STAGE_PROGRAMS(
+        ("prefill", dtype, kv_quant), model,
+        [inputs[k] for k in ("speaker_latent", "speaker_mask", "text_ids",
+                             "text_mask")],
+        lambda: functools.partial(prefill_static, dtype=dtype,
+                                  kv_quant=kv_quant))
+
+
+def _sampler_body(model, noise, kv_static, spk_cols, mask_cfg, mask_plain, *,
+                  plan, layer_scales, dtype, cfg_scale_text,
+                  cfg_scale_speaker) -> torch.Tensor:
+    return run_step_segments(
+        model, noise.to(torch.float32, copy=True), plan, kv_static, spk_cols,
+        mask_cfg, mask_plain, cfg_scale_text=cfg_scale_text,
+        cfg_scale_speaker=cfg_scale_speaker, speaker_kv_max_layers=None,
+        dtype=dtype, layer_scales=layer_scales)
 
 
 @torch.inference_mode()
@@ -190,12 +215,21 @@ def sampler(model: dit.EchoDiT, plan, pre: StaticPrefill,
             cfg_scale_text: float = 3.0, cfg_scale_speaker: float = 8.0
             ) -> torch.Tensor:
     """The Euler step loop (sampler/euler.run_step_segments, the serving
-    sampler's own) over a prefill from the inputs' noise; float32
-    latents."""
-    return run_step_segments(
-        model, inputs["noise"].float(), plan, *pre,
-        cfg_scale_text=cfg_scale_text, cfg_scale_speaker=cfg_scale_speaker,
-        speaker_kv_max_layers=None, dtype=dtype)
+    sampler's own) over a prefill from the inputs' noise, as one program
+    keyed on the step plan and the scales; float32 latents."""
+    key = ("sampler", tuple(np.asarray(f).tobytes() for f in plan), dtype,
+           float(cfg_scale_text), float(cfg_scale_speaker))
+    device = inputs["noise"].device
+
+    def make_body():
+        return functools.partial(
+            _sampler_body, plan=plan,
+            layer_scales=step_layer_scales(plan, model.cfg.num_layers, None,
+                                           device),
+            dtype=dtype, cfg_scale_text=cfg_scale_text,
+            cfg_scale_speaker=cfg_scale_speaker)
+
+    return STAGE_PROGRAMS(key, model, [inputs["noise"], *pre], make_body)
 
 
 UNIFORM_BLOCK = 320

@@ -25,6 +25,7 @@ from torch import nn
 from ...config import DACConfig
 from ...ops.res_stack import (DILATIONS, KERNEL_WIDTHS, ResStackWeights,
                                fused_res_stack, res_stack_eligible)
+from ...utils import programs
 from .conv import (CausalConv, CausalConvTranspose, ConvNeXtBlock,
                    ResidualUnit, Snake1d, snake)
 from .quantize import ResidualVectorQuantize, rvq_encode, rvq_from_codes
@@ -141,7 +142,9 @@ def _stack_weights(units) -> ResStackWeights:
             stack(lambda u: u.block[2].vec()))
         cached = (key, weights)
         units[0]._res_stack_weights = cached
-    return cached[1]
+    # a program's graph reads the kernel-layout copy: it holds the weights
+    # even after a reload replaces them here (utils/programs.py)
+    return programs.hold(cached[1])
 
 
 def _res_stack(units, x: torch.Tensor, approx_snake: bool = False,

@@ -27,8 +27,6 @@ zero state may be shared by every stream (pipeline.ae_decode_stream_init).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -40,7 +38,7 @@ from .conv import (CausalConv, CausalConvTranspose, ConvNeXtBlock,
 from .dac import DILATIONS, S1DAC, _res_stack, zq_from_codes
 from .quantize import rvq_encode
 from .transformer import (WindowLimitedTransformer, _apply_rope,
-                          _rms_norm_ae, _rope_table_bf16)
+                          _rms_norm_ae, rope_table)
 
 # Default RoPE-table bound for streaming decode: ~6.3 min of latents at
 # 21.5 Hz, past the reference's 300 s load_audio cap (inference.py:104-113).
@@ -160,12 +158,6 @@ def _convnext_block_s(blk: ConvNeXtBlock, hist, x):
     return hist, x + blk.gamma * y
 
 
-@functools.lru_cache(maxsize=8)
-def _rope_table_on(seq_len: int, n_elem: int, base: float,
-                   device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_rope_table_bf16(seq_len, n_elem, base)).to(device)
-
-
 def transformer_decode_block(p: WindowLimitedTransformer,
                              cfg: AETransformerConfig, st: dict,
                              x: torch.Tensor, max_positions: int):
@@ -182,8 +174,7 @@ def transformer_decode_block(p: WindowLimitedTransformer,
         raise ValueError(f"position {pos} + block {s} exceeds the RoPE bound "
                          f"{max_positions}")
     dev = x.device
-    table = _rope_table_on(max_positions, hd, cfg.rope_base,
-                           torch.device(dev))[pos:pos + s]
+    table = rope_table(max_positions, hd, cfg.rope_base, dev)[pos:pos + s]
     scale = 1.0 / (hd ** 0.5)
     # cache slot m holds position pos - (W-1) + m, block key n position
     # pos + n, query i position pos + i: visible iff the key position is

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import AETransformerConfig
+from ...utils import programs
 
 
 class _Norm(nn.Module):
@@ -78,6 +79,21 @@ def _rope_table_bf16(seq_len: int, n_elem: int, base: float) -> np.ndarray:
     return torch.from_numpy(table).to(torch.bfloat16).float().numpy()
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_table_on(seq_len: int, n_elem: int, base: float,
+                   device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_rope_table_bf16(seq_len, n_elem, base)).to(device)
+
+
+def rope_table(seq_len: int, n_elem: int, base: float, device) -> torch.Tensor:
+    """The bf16-rounded table on `device`, cached: its first use copies it
+    from the host, which a CUDA graph cannot capture, so a program's eager
+    run makes it and the program holds it (utils/programs.py)."""
+    return programs.hold(_rope_table_on(seq_len, n_elem, base,
+                                        torch.device(device)))
+
+
 def _apply_rope(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Interleaved pairs, fp32 (autoencoder.py:815-826)."""
     xf = x.float().reshape(*x.shape[:-1], -1, 2)
@@ -110,7 +126,7 @@ def transformer_forward(p: WindowLimitedTransformer, cfg: AETransformerConfig,
     (autoencoder.py:786-802, 590-608)."""
     b, s, d = x.shape
     h, hd = cfg.n_head, cfg.head_dim
-    table = torch.from_numpy(_rope_table_bf16(s, hd, cfg.rope_base)).to(x.device)
+    table = rope_table(s, hd, cfg.rope_base, x.device)
     keep = window_causal_mask(s, cfg.window_size, x.device)[None, None]
     scale = 1.0 / (hd ** 0.5)
     for blk in p.layers:

@@ -7,6 +7,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import programs
+
 
 @functools.lru_cache(maxsize=8)
 def _freqs(embed_size: int, device: torch.device) -> torch.Tensor:
@@ -26,6 +28,7 @@ def get_timestep_embedding(timestep: torch.Tensor, embed_size: int) -> torch.Ten
     timestep: (B,) in model dtype.  The product is float32 and the result
     is cast back to the timestep dtype."""
     assert embed_size % 2 == 0
-    freqs = _freqs(embed_size, timestep.device)
+    # made by a host copy on first use; a program holds it (ops/rope.py)
+    freqs = programs.hold(_freqs(embed_size, timestep.device))
     args = timestep[..., None].float() * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1).to(timestep.dtype)

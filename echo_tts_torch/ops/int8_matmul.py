@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from ..utils import programs
 
 
 def quantize_last(a: torch.Tensor, qmax: float
@@ -180,6 +181,8 @@ def int8_matmul_fused(x: torch.Tensor, w8: torch.Tensor, w_scale: torch.Tensor,
 
 
 int8_matmul_fused.launches = 0
+# exact under CUDA-graph replay (utils/programs.py)
+programs.register_counters(int8_matmul_fused, "launches")
 
 
 _ARGTYPES_PARTIAL = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -239,3 +242,4 @@ def int8_matmul_partial(x: torch.Tensor, w8: torch.Tensor,
 
 
 int8_matmul_partial.launches = 0
+programs.register_counters(int8_matmul_partial, "launches")

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from ..utils import programs
 
 MASK_VALUE = -1e30
 KERNEL_HEAD_DIM = 128   # the DiT's; the only one csrc/joint_attention.cu takes
@@ -287,6 +288,8 @@ def fused_joint_attention(q: torch.Tensor, k_self: torch.Tensor,
 
 fused_joint_attention.launches = 0
 fused_joint_attention.launches_kv8 = 0
+# exact under CUDA-graph replay (utils/programs.py)
+programs.register_counters(fused_joint_attention, "launches", "launches_kv8")
 
 
 # ---------------------------------------------------------------------------

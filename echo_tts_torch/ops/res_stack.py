@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .activations import sin2_poly
+from ..utils import programs
 
 # Canonical dilation schedule of the codec's residual units
 # (reference: autoencoder.py:887-891).
@@ -298,3 +299,5 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
 
 fused_res_stack.launches = 0
 fused_res_stack.launches_stream = 0
+# exact under CUDA-graph replay (utils/programs.py)
+programs.register_counters(fused_res_stack, "launches", "launches_stream")

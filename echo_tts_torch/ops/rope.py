@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import programs
+
 
 @functools.lru_cache(maxsize=64)
 def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0) -> np.ndarray:
@@ -36,8 +38,10 @@ def _freqs_on(dim: int, end: int, device: torch.device) -> torch.Tensor:
 
 def freqs_tensor(dim: int, end: int, device) -> torch.Tensor:
     """The table on `device`, cached so the sampler's steps copy nothing
-    from the host."""
-    return _freqs_on(dim, end, torch.device(device))
+    from the host.  Its first use copies it from the host, which a CUDA
+    graph cannot capture: a program's eager run makes it, and the program
+    holds it (utils/programs.py), since the cache may drop it."""
+    return programs.hold(_freqs_on(dim, end, torch.device(device)))
 
 
 def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,11 @@ inference.py:218-388): chunked AE encode of the speaker reference, the
 sampler call, AE decode, the end-of-speech crop, the chunked-text
 variant, and the streaming (block) encode/decode entry points.
 
+The one-shot encode and decode run as captured programs, `_encode_core`
+and `_decode_core` (JAX pipeline.py:51-67, each a jitted program per codec
+configuration and shape): one per codec, PCA state and input shapes, on a
+card a CUDA graph (utils/programs.py).
+
 A `sample_fn` has the signature
     sample_fn(models, speaker_latent, speaker_mask, text_ids, text_mask,
               rng_seed) -> latents (B, S, 80) float32
@@ -29,6 +34,7 @@ from ..models.dac.init import init_dac, init_pca_params
 from ..models.dit import EchoDiT, init_dit
 from ..sampler.euler import sample_euler_cfg_independent_guidances
 from ..tools.bridge import load_dac_state, load_dit_state, pca_state
+from ..utils import programs
 from . import dsp
 from .text import chunk_text, get_text_input_ids_and_mask
 
@@ -64,24 +70,71 @@ def _dac_dtype(models: EchoModels) -> torch.dtype:
     return next(models.dac.parameters()).dtype
 
 
+# The codec's programs, one per codec, PCA state and input shapes, at most
+# 8 of each kind: the bound of the JAX package's lru_caches on
+# _encode_core and _decode_core.
+ENCODE_PROGRAMS = programs.ProgramCache("encode", 8)
+DECODE_PROGRAMS = programs.ProgramCache("decode", 8)
+
+
+def _encode_body(dac, audio, *, pca: dict) -> torch.Tensor:
+    z_q = tdac.encode_zq(dac, audio)
+    return tdac.pca_whiten(z_q.float(), pca)
+
+
+def _decode_body(dac, latents, *, pca: dict, dtype) -> torch.Tensor:
+    z_q = tdac.pca_unwhiten(latents, pca)
+    return tdac.decode_zq(dac, z_q.to(dtype))[..., 0].float()
+
+
+def _codec_key(models: EchoModels) -> tuple:
+    # the program holds the PCA dict (its body's partial), so its id
+    # cannot be reused while the program lives
+    return (models.dac_cfg, _dac_dtype(models), id(models.pca))
+
+
+def _encode_core(models: EchoModels):
+    """run(audio (B, L, 1) in the codec's dtype) -> whitened fp32 latents,
+    one ENCODE_PROGRAMS program per shape (JAX pipeline.py:51-58)."""
+    pca = models.pca
+
+    def run(audio):
+        with torch.inference_mode():
+            return ENCODE_PROGRAMS(
+                _codec_key(models), models.dac, [audio],
+                lambda: functools.partial(_encode_body, pca=pca))
+    return run
+
+
+def _decode_core(models: EchoModels):
+    """run(latents (B, T, 80) fp32) -> fp32 waveform (B, T * 2048), one
+    DECODE_PROGRAMS program per shape (JAX pipeline.py:61-67)."""
+    pca, dtype = models.pca, _dac_dtype(models)
+
+    def run(latents):
+        with torch.inference_mode():
+            return DECODE_PROGRAMS(
+                _codec_key(models), models.dac, [latents],
+                lambda: functools.partial(_decode_body, pca=pca, dtype=dtype))
+    return run
+
+
 @torch.inference_mode()
 def ae_encode(models: EchoModels, audio: torch.Tensor) -> torch.Tensor:
     """(B, L) or (B, L, 1) waveform -> (B, T, 80) whitened fp32 latents
-    (reference: inference.py:218-224)."""
+    (reference: inference.py:218-224), through _encode_core."""
     if audio.ndim == 2:
         audio = audio[..., None]
     audio = audio.to(device=models.device, dtype=_dac_dtype(models))
-    z_q = tdac.encode_zq(models.dac, audio)
-    return tdac.pca_whiten(z_q.float(), models.pca)
+    return _encode_core(models)(audio)
 
 
 @torch.inference_mode()
 def ae_decode(models: EchoModels, latents: torch.Tensor) -> torch.Tensor:
     """(B, T, 80) latents -> (B, T*2048) fp32 waveform
-    (reference: inference.py:227-229)."""
-    z_q = tdac.pca_unwhiten(latents.to(models.device).float(), models.pca)
-    audio = tdac.decode_zq(models.dac, z_q.to(_dac_dtype(models)))
-    return audio[..., 0].float()
+    (reference: inference.py:227-229), through _decode_core."""
+    return _decode_core(models)(
+        latents.to(device=models.device, dtype=torch.float32))
 
 
 def ae_reconstruct(models: EchoModels, audio: torch.Tensor) -> torch.Tensor:

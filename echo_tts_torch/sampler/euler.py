@@ -12,9 +12,17 @@ tensor-parallel shard (parallel.inference.shard_models) and the request
 tensors are the rank's rows (parallel.inference.place_request); the CFG
 batch is built from those rows, so it stays G-major over the rank's own
 static K/V, and the result is the rank's rows of the latents.
+
+Without a mesh the sampler runs as one captured program per static
+configuration and input shapes, `_euler_core` (JAX euler.py:197-257, one
+jitted program over the prefill and every step): on a card a CUDA graph
+(utils/programs.py), replayed with one launch.  The per-step scalars are
+Python floats baked into it, as the JAX core bakes them from its cache
+key.  Under a mesh the sampler runs eagerly.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -25,6 +33,7 @@ from ..config import EchoDiTConfig
 from ..models import dit
 from ..ops.quant import quantize_kv_int8
 from ..parallel.mesh import mesh_coords
+from ..utils import programs
 
 
 class StepPlan(NamedTuple):
@@ -116,23 +125,35 @@ def make_cfg_branch_masks(cfg: EchoDiTConfig, text_mask: torch.Tensor,
     return mask_cfg, mask_plain
 
 
+def step_layer_scales(plan: StepPlan, num_layers: int,
+                      speaker_kv_max_layers: Optional[int],
+                      device) -> torch.Tensor:
+    """Every step's per-layer speaker-KV scale, (N, L) fp32 on `device`:
+    the step's scale on the first speaker_kv_max_layers layers, 1 above.
+    A host copy, so a program builds it once, before its capture."""
+    max_layers = (num_layers if speaker_kv_max_layers is None
+                  else min(speaker_kv_max_layers, num_layers))
+    gate = np.arange(num_layers) < max_layers
+    return torch.from_numpy(np.where(
+        gate[None, :], plan.speaker_scale[:, None], np.float32(1.0)
+    ).astype(np.float32)).to(device)
+
+
 def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                       kv_static: dit.KV, spk_cols: torch.Tensor,
                       mask_cfg: torch.Tensor, mask_plain: torch.Tensor, *,
                       cfg_scale_text: float, cfg_scale_speaker: float,
                       speaker_kv_max_layers: Optional[int], dtype,
-                      start_pos: int = 0, mesh=None) -> torch.Tensor:
+                      start_pos: int = 0, mesh=None,
+                      layer_scales: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The Euler loop over the step plan (reference loop:
-    inference.py:481-515); x_t (B, S, latent) float32."""
-    cfg = model.cfg
+    inference.py:481-515); x_t (B, S, latent) float32.  `layer_scales`
+    (step_layer_scales) is made here when not given."""
     batch_size = x_t.shape[0]
-    max_layers = (cfg.num_layers if speaker_kv_max_layers is None
-                  else min(speaker_kv_max_layers, cfg.num_layers))
-    gate = np.arange(cfg.num_layers) < max_layers
-    # every step's per-layer speaker scale, moved to the device once
-    layer_scales = torch.from_numpy(np.where(
-        gate[None, :], plan.speaker_scale[:, None], np.float32(1.0)
-    ).astype(np.float32)).to(x_t.device)
+    if layer_scales is None:
+        layer_scales = step_layer_scales(plan, model.cfg.num_layers,
+                                         speaker_kv_max_layers, x_t.device)
     s_text = float(np.float32(cfg_scale_text))
     s_spk = float(np.float32(cfg_scale_speaker))
 
@@ -249,16 +270,100 @@ def sample_euler_cfg_independent_guidances(
         initial_noise = torch.randn(
             (batch_size, sequence_length, cfg.latent_size),
             generator=generator, device=device, dtype=torch.float32)
+    if mesh is None:
+        core = _euler_core(
+            model, num_steps, float(cfg_scale_text), float(cfg_scale_speaker),
+            float(cfg_min_t), float(cfg_max_t), _opt_float(truncation_factor),
+            _opt_float(rescale_k), _opt_float(rescale_sigma),
+            _opt_float(speaker_kv_scale), speaker_kv_max_layers,
+            _opt_float(speaker_kv_min_t), dtype, bool(kv_quant))
+        return core(speaker_latent, speaker_mask, text_input_ids, text_mask,
+                    initial_noise)
+
     plan = build_step_plan(num_steps, cfg_min_t, cfg_max_t, rescale_k,
                            rescale_sigma, speaker_kv_scale, speaker_kv_min_t)
+    return _euler_body(
+        model, speaker_latent, speaker_mask, text_input_ids, text_mask,
+        initial_noise.to(device), plan=plan, layer_scales=None,
+        truncation_factor=truncation_factor, cfg_scale_text=cfg_scale_text,
+        cfg_scale_speaker=cfg_scale_speaker,
+        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype,
+        kv_quant=kv_quant, mesh=mesh)
 
-    x_t = initial_noise.to(device=device, dtype=torch.float32)
+
+def _opt_float(x) -> Optional[float]:
+    return None if x is None else float(x)
+
+
+# The sampler's programs, one per static configuration (the model, its
+# parameters and the JAX core's key) and input shapes, at most 64: the
+# bound of the JAX package's lru_cache on _euler_core.
+EULER_PROGRAMS = programs.ProgramCache("euler", 64)
+
+
+def _euler_body(model, speaker_latent, speaker_mask, text_input_ids,
+                text_mask, initial_noise, *, plan: StepPlan,
+                layer_scales: Optional[torch.Tensor], truncation_factor,
+                cfg_scale_text, cfg_scale_speaker, speaker_kv_max_layers,
+                dtype, kv_quant: bool, mesh=None) -> torch.Tensor:
+    """The prefill and every step on one request's tensors (what
+    _euler_core captures; under a mesh, what the sampler runs eagerly)."""
+    x_t = initial_noise.to(torch.float32, copy=True)
     if truncation_factor is not None:
         x_t = x_t * float(np.float32(truncation_factor))
-
     pre = prefill_static(model, speaker_latent, speaker_mask, text_input_ids,
                          text_mask, dtype=dtype, kv_quant=kv_quant, mesh=mesh)
     return run_step_segments(
         model, x_t, plan, *pre, cfg_scale_text=cfg_scale_text,
         cfg_scale_speaker=cfg_scale_speaker,
-        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype, mesh=mesh)
+        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype, mesh=mesh,
+        layer_scales=layer_scales)
+
+
+def _euler_core(model: dit.EchoDiT, num_steps: int, cfg_scale_text: float,
+                cfg_scale_speaker: float, cfg_min_t: float, cfg_max_t: float,
+                truncation_factor: Optional[float], rescale_k: Optional[float],
+                rescale_sigma: Optional[float],
+                speaker_kv_scale: Optional[float],
+                speaker_kv_max_layers: Optional[int],
+                speaker_kv_min_t: Optional[float], dtype,
+                kv_quant: bool = False):
+    """The sampler core of one static configuration (JAX euler.py:197-257):
+    run(speaker_latent, speaker_mask, text_input_ids, text_mask,
+    initial_noise) -> latents (B, S, latent) fp32, the prefill and every
+    step as one program of EULER_PROGRAMS per input shapes.  Its key is
+    the JAX core's (the model's config and the sampler's parameters, the
+    dtype, kv_quant) with the model itself, whose weights the program
+    reads.  The per-step scalars are baked into the program; the step plan
+    and the per-layer speaker scales are built once, on its miss.  The
+    inputs are moved to the model's device first; the noise is drawn by
+    the caller."""
+    cfg = model.cfg
+    device = next(model.parameters()).device
+    key = (cfg, num_steps, cfg_scale_text, cfg_scale_speaker, cfg_min_t,
+           cfg_max_t, truncation_factor, rescale_k, rescale_sigma,
+           speaker_kv_scale, speaker_kv_max_layers, speaker_kv_min_t, dtype,
+           kv_quant)
+
+    def make_body():
+        plan = build_step_plan(num_steps, cfg_min_t, cfg_max_t, rescale_k,
+                               rescale_sigma, speaker_kv_scale,
+                               speaker_kv_min_t)
+        return functools.partial(
+            _euler_body, plan=plan,
+            layer_scales=step_layer_scales(plan, cfg.num_layers,
+                                           speaker_kv_max_layers, device),
+            truncation_factor=truncation_factor,
+            cfg_scale_text=cfg_scale_text, cfg_scale_speaker=cfg_scale_speaker,
+            speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype,
+            kv_quant=kv_quant)
+
+    def run(speaker_latent, speaker_mask, text_input_ids, text_mask,
+            initial_noise):
+        inputs = [x.to(device) for x in (speaker_latent, speaker_mask,
+                                         text_input_ids, text_mask)]
+        inputs.append(initial_noise.to(device=device, dtype=torch.float32))
+        with torch.inference_mode():
+            return EULER_PROGRAMS(key, model, inputs, make_body)
+
+    return run

@@ -27,9 +27,16 @@ The models load on `ServeConfig.device` (ECHO_DEVICE, default "cuda"):
 without a card the default raises, and the CPU runs only when asked.
 With ECHO_COORD set, `main` first joins the world of one process per card
 (parallel/distributed.py) and each rank then serves on its own card, the
-share-nothing stance of the reference's workers.  The JAX handler's
-`--warmup-full` (the whole XLA shape manifest) has no counterpart:
-nothing here compiles per shape.
+share-nothing stance of the reference's workers.
+
+The sampler and the codec run as captured programs, one CUDA graph per
+static key and shape (utils/programs.py), and a shape's first request
+pays its eager run and its capture.  `warmup_compile` builds the kernels
+and captures the programs of serve.presets.warmup_manifest before
+traffic arrives: `--warmup-compile` the high-traffic subset,
+`--warmup-full` the whole accepted surface, and with `--concurrent N` the
+micro-batch server's batch buckets.  A graph lives in its process, so
+the worker warms up and then serves in the same process.
 """
 from __future__ import annotations
 
@@ -54,7 +61,7 @@ from . import models as models_mod
 from .config import (AUDIO_EXTENSIONS, ServeConfig, device_info, load_config,
                      scan_voices)
 # bound here so that tests can shrink them via monkeypatch on this module
-from .presets import MAX_STREAM_CHUNKS, STREAM_CHUNK_SIZES
+from .presets import MAX_STREAM_CHUNKS, STREAM_CHUNK_SIZES, batch_size_buckets
 from .storage import sanitize_component, save_and_upload_audio
 
 log = logging.getLogger("echo_tts_torch.serve")
@@ -572,24 +579,93 @@ def handler_generator(job: Dict):
         yield _error_envelope(exc)
 
 
-def warmup_compile(models: EchoModels,
-                   parameters: Optional[Dict] = None) -> None:
-    """Get the worker ready for traffic: build the three hand-written
-    kernels (ops/cuda_build: one nvcc per source, 35-50 s on first use,
-    cached in the build directory by a hash of the sources) and answer one
-    short request through the one-shot path.  This is what the port
-    compiles: an eager PyTorch program has no per-shape programs to warm,
-    which is why the JAX package's warm-up manifest has no counterpart
-    here."""
+def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
+                   *, full: bool = False, batch_sizes=(),
+                   manifest: Optional[List[Dict]] = None) -> List[Dict]:
+    """Get the worker ready for traffic (JAX handler.py:603-686): build the
+    three hand-written kernels (ops/cuda_build: one nvcc per source, on
+    first use, cached in the build directory by a hash of the sources),
+    capture the 640-latent voice encode, then run every entry of
+    serve.presets.warmup_manifest (or `manifest`) through the real request
+    paths, so that the programs' keys are production's: one-shot entries
+    through sample_pipeline, stream entries through stream_synthesize,
+    batch entries through run_batch.  The manifest comes from the same
+    constants request validation uses: by default the high-traffic subset,
+    `full` the whole accepted surface, `batch_sizes` the micro-batch
+    server's buckets.  Returns one record per step: the entry, its
+    seconds, the seconds of each program it captured and the shared
+    pool's bytes after it."""
     from ..ops import cuda_build
+    from ..pipeline.pipeline import get_speaker_latent_and_mask
+    from ..utils import programs
+    from .batcher import BatchRequest, run_batch
+    from .presets import pick_speaker_bucket, warmup_manifest
+    from .streaming import stream_synthesize
 
-    t0 = time.time()
+    if manifest is None:
+        manifest = warmup_manifest(
+            batch_sizes, full=full,
+            default_sequence_length=(parameters or {}).get("sequence_length"))
+
+    def spk_latent(bucket):
+        if bucket is None:
+            return None
+        return np.zeros((1, bucket, models.dit_cfg.latent_size), np.float32)
+
+    report = []
+
+    def step(entry, fn):
+        t0, n0 = time.time(), len(programs.CAPTURES)
+        fn()
+        captured = [round(s, 3) for _, s in programs.CAPTURES[n0:]]
+        report.append({"entry": entry, "seconds": time.time() - t0,
+                       "captures": captured,
+                       "pool_bytes": programs.pool_bytes(models.device)})
+        log.info("warmup %d/%d %s: %.1fs, %d programs captured %s, pool "
+                 "%d bytes", len(report), len(manifest) + 1, entry,
+                 report[-1]["seconds"], len(captured), captured,
+                 report[-1]["pool_bytes"])
+
+    t_all = time.time()
     if models.device.type == "cuda":
-        secs = cuda_build.build()
-        log.info("kernels built: %s", secs)
-    sample_fn, _ = build_sample_fn(parameters)
-    sample_pipeline(models, sample_fn, "Warmup utterance.", None, rng_seed=0)
-    log.info("warm-up: %.1fs", time.time() - t0)
+        log.info("kernels built: %s", cuda_build.build())
+    # every manifest entry passes a latent, but a request with a
+    # speaker_voice encodes it in 640-latent chunks: one program for all
+    # buckets (pipeline.get_speaker_latent_and_mask)
+    spl = models.dac_cfg.frame_length
+    step({"kind": "voice_encode", "latents": 640},
+         lambda: get_speaker_latent_and_mask(
+             models, np.zeros((1, 640 * spl), np.float32),
+             max_speaker_latent_length=pick_speaker_bucket(640),
+             pad_to_max=True))
+    for e in manifest:
+        s = e.get("speaker_bucket")
+        lat = spk_latent(s)
+        if e["kind"] == "oneshot":
+            sample_fn, _ = build_sample_fn(
+                {**(parameters or {}), "sequence_length": e["sequence_length"]})
+            step(e, lambda: sample_pipeline(
+                models, sample_fn, "Warmup utterance.", None, rng_seed=0,
+                speaker_latent=lat,
+                speaker_mask=None if lat is None else np.ones(lat.shape[:2], bool)))
+        elif e["kind"] == "stream":
+            step(e, lambda: [None for _ in stream_synthesize(
+                models, "Warmup utterance.", None,
+                chunk_sizes=e["chunk_sizes"], speaker_latent=lat,
+                sampler_params=parameters)])
+        elif e["kind"] == "batch":
+            step(e, lambda: run_batch(
+                models, [BatchRequest(text="Warmup utterance.", seed=k,
+                                      speaker_latent=lat)
+                         for k in range(e["batch_size"])],
+                sampler_params={**(parameters or {}),
+                                "sequence_length": e["sequence_length"]},
+                speaker_bucket=s))
+        else:
+            raise ValueError(f"unknown warmup entry kind: {e['kind']!r}")
+    log.info("warmup compile: %d entries in %.1fs", len(manifest),
+             time.time() - t_all)
+    return report
 
 
 def serve_stdin_concurrent(cfg: ServeConfig, *, max_batch: int,
@@ -672,19 +748,28 @@ def serve_stdin_concurrent(cfg: ServeConfig, *, max_batch: int,
 
 def main(argv: Optional[List[str]] = None) -> None:
     """CLI: `--warmup` loads the models then exits (reference:
-    handler.py:822-861); `--warmup-compile` also builds the kernels and
-    answers one short request (warmup_compile).  Otherwise starts the
-    runpod worker when runpod is installed, else serves stdin/stdout JSON
-    lines: serially by default, or with `--concurrent N` /
-    ECHO_CONCURRENT=N through the micro-batching executor
-    (serve_stdin_concurrent).  ECHO_DEVICE=cpu runs on the CPU."""
+    handler.py:822-861).  `--warmup-compile` builds the kernels and
+    captures the high-traffic programs of the warm-up manifest, and
+    `--warmup-full` those of the whole accepted surface, the batch
+    buckets of `--concurrent N` included (warmup_compile), then serve in
+    this process, where the programs live.  Serving starts the runpod
+    worker when runpod is installed, else serves stdin/stdout JSON lines:
+    serially by default, or with `--concurrent N` / ECHO_CONCURRENT=N
+    through the micro-batching executor (serve_stdin_concurrent).
+    ECHO_DEVICE=cpu runs on the CPU."""
     import argparse
     import json
     import sys
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--warmup", action="store_true")
-    parser.add_argument("--warmup-compile", action="store_true")
+    parser.add_argument("--warmup-compile", action="store_true",
+                        help="capture the high-traffic programs of the "
+                             "warm-up manifest, then serve")
+    parser.add_argument("--warmup-full", action="store_true",
+                        help="capture the programs of the whole accepted "
+                             "shape surface (every sequence x speaker "
+                             "bucket and stream), then serve")
     parser.add_argument("--allow-random-weights", action="store_true")
     parser.add_argument(
         "--concurrent", type=int,
@@ -707,12 +792,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     for issue in cfg.issues:
         log.warning("config: %s (starting anyway)", issue)
 
-    if args.warmup or args.warmup_compile:
+    if args.warmup or args.warmup_compile or args.warmup_full:
         models = _load(cfg, args.allow_random_weights)
-        if args.warmup_compile:
-            warmup_compile(models)
+        if not (args.warmup_compile or args.warmup_full):
+            log.info("warmup complete")
+            return
+        # warm every batch bucket the server can pad a group to: it runs
+        # no other batch size (serve/server.py)
+        warmup_compile(models, full=args.warmup_full,
+                       batch_sizes=(batch_size_buckets(args.concurrent)
+                                    if args.concurrent > 0 else ()))
         log.info("warmup complete")
-        return
 
     try:
         import runpod

@@ -1,31 +1,32 @@
-"""Sampler presets, the shape buckets that set outputs, and the streaming
-block schedules.
+"""Sampler presets, the shape buckets, the streaming block schedules and
+the warm-up manifest.
 
 Counterpart of echo_tts_tpu/serve/presets.py.  Presets mirror the
 reference's sampler_presets.json (6 presets varying CFG scales,
 truncation and temporal rescale; reference: sampler_presets.json:1-62,
 loaded at gradio_app.py:431-451); a copy of the JSON ships with this
-package.  The buckets kept are those that change what a request returns
-or that batching needs: the sequence bucket of `auto_sequence_length` (the
-audio's length), the speaker bucket (the padded speaker width that the
-voice cache stores and a batch stacks at, batcher.py:149-154) and the
-text bucket.  The streaming part (block sizes, block-count cap,
-stream-total buckets, growing schedule) is copied as it is.
+package.
 
-Left out, because they only bound the number of compiled XLA programs and
-an eager PyTorch program compiles nothing per shape: `batch_size_buckets`
-/ `pick_batch_bucket` (the server runs each group at its own size),
-`warmup_manifest` and `_later_cover_schedule` (the port's warm-up builds
-the kernels instead, serve/handler.warmup_compile).  The blockwise
-sampler leaves out the JAX package's `total_len_bucket` for the same
-reason.
+The buckets keep the set of captured programs finite, as they keep the
+JAX package's set of compiled programs finite: every sampler and codec
+program is one CUDA graph per static key and input shapes
+(utils/programs.py).  Text {768}, speaker {640, 2816, 6400} latents, the
+sequence buckets of `auto_sequence_length`, the streaming block sizes and
+stream-total buckets, and the micro-batch server's batch sizes
+(`batch_size_buckets`, `pick_batch_bucket`).  `warmup_manifest` lists
+every shape the serving surface accepts, from the same constants request
+validation uses, and serve/handler.warmup_compile captures them before
+traffic arrives.  The blockwise sampler's and the streaming path's
+programs (with the JAX package's `total_len_bucket`) come with the
+blockwise and streaming cores; until then their manifest entries run the
+streams eagerly.
 """
 from __future__ import annotations
 
 import functools
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..pipeline.text import find_min_bucket_gte
 
@@ -136,3 +137,151 @@ def pick_text_bucket(actual_length: int,
 def pick_speaker_bucket(actual_latents: int,
                         buckets: str = SPEAKER_BUCKETS) -> int:
     return find_min_bucket_gte(buckets, actual_latents)
+
+
+def _parse_buckets(values_str: str) -> List[int]:
+    return [int(v.strip()) for v in values_str.split(",") if v.strip()]
+
+
+# The JAX package's streams carry the latent prefix from this total on and
+# re-encode it below (its serve/streaming.py), and key their block
+# programs on the choice; the port carries it at every length
+# (serve/streaming.py), but the manifest keeps the JAX package's entries
+# on both sides of the threshold, so that the two warm the same streams.
+INCREMENTAL_LATENT_MIN_TOTAL = 2560
+
+
+def _later_cover_schedule(tb: int, buckets: str = STREAM_TOTAL_BUCKETS,
+                          min_total: int = 0) -> List[int]:
+    """A valid stream schedule whose total lands in bucket `tb` and that
+    holds every STREAM_CHUNK_SIZES entry reachable as a later (not first)
+    block within the bucket, so that one stream warms every
+    (total bucket, later block size) program the bucket can serve.  Sizes
+    that would overflow the bucket as a later block (a later 320 in the
+    320 bucket) never occur in traffic and are skipped.  min_total > 0
+    tops the schedule up to at least that total, within the bucket (the
+    threshold bucket's entry past INCREMENTAL_LATENT_MIN_TOTAL)."""
+    totals = _parse_buckets(buckets)
+    prev = max([t for t in totals if t < tb], default=0)
+    sched = [min(STREAM_CHUNK_SIZES)]
+    for c in sorted(STREAM_CHUNK_SIZES):
+        if sum(sched) + c <= tb and len(sched) < MAX_STREAM_CHUNKS:
+            sched.append(c)
+    biggest = max(STREAM_CHUNK_SIZES)
+    while (sum(sched) <= prev and sum(sched) + biggest <= tb
+           and len(sched) < MAX_STREAM_CHUNKS):
+        sched.append(biggest)
+    for c in sorted(STREAM_CHUNK_SIZES, reverse=True):
+        while (sum(sched) < min_total and sum(sched) + c <= tb
+               and len(sched) < MAX_STREAM_CHUNKS):
+            sched.append(c)
+    if sum(sched) <= prev or sum(sched) < min_total:
+        raise ValueError(
+            f"cannot build a schedule landing in total bucket {tb} "
+            f"(>= {min_total}) within MAX_STREAM_CHUNKS="
+            f"{MAX_STREAM_CHUNKS}")
+    return sched
+
+
+def warmup_manifest(batch_sizes=(), *, full: bool = False,
+                    default_sequence_length: Optional[int] = None
+                    ) -> List[Dict]:
+    """Every static shape the serving surface accepts, derived from the
+    constants request validation uses (this module), so that the warmed
+    and the accepted surfaces cannot drift apart.  Entry kinds, run by
+    serve.handler.warmup_compile through the real request paths, so that
+    the programs' keys are production's:
+
+      {"kind": "oneshot", "text_bucket", "speaker_bucket", "sequence_length"}
+      {"kind": "stream",  "speaker_bucket", "chunk_sizes", "total_bucket"}
+      {"kind": "batch",   "batch_size", "speaker_bucket", "sequence_length"}
+
+    full=False warms the high-traffic subset: the default sequence
+    length, speaker {none, smallest bucket}, the default stream schedule
+    and the growing one, and the given batch sizes.  full=True lists the
+    whole accepted surface: every sequence bucket x speaker bucket, and
+    every (stream-total bucket x block size x first/later) stream."""
+    from ..config import MAX_TEXT_LENGTH, SAMPLER_DEFAULTS
+    seq_default = (default_sequence_length
+                   or SAMPLER_DEFAULTS["sequence_length"])
+    # every request path pads text to MAX_TEXT_LENGTH, so there is one
+    # text width; a second TEXT_BUCKETS value would need a request path
+    # that buckets text, and its own entries here
+    text_buckets = _parse_buckets(TEXT_BUCKETS)
+    if text_buckets != [MAX_TEXT_LENGTH]:
+        raise AssertionError(
+            f"TEXT_BUCKETS {text_buckets} != [MAX_TEXT_LENGTH "
+            f"{MAX_TEXT_LENGTH}]: request paths pad text to "
+            "MAX_TEXT_LENGTH only; a text bucket needs bucketed request "
+            "paths and warmup_manifest entries")
+    speaker_all = [None] + _parse_buckets(SPEAKER_BUCKETS)
+    seq_all = sorted(set(_parse_buckets(SEQUENCE_BUCKETS)) | {seq_default})
+    totals = _parse_buckets(STREAM_TOTAL_BUCKETS)
+    sizes = list(STREAM_CHUNK_SIZES)
+
+    speakers = speaker_all if full else [None, speaker_all[1]]
+    seqs = seq_all if full else [seq_default]
+
+    entries = [{"kind": "oneshot", "text_bucket": t, "speaker_bucket": s,
+                "sequence_length": q}
+               for t in text_buckets for s in speakers for q in seqs]
+
+    def stream_entry(s, schedule):
+        return {"kind": "stream", "speaker_bucket": s,
+                "chunk_sizes": list(schedule),
+                "total_bucket": pick_stream_total_bucket(sum(schedule))}
+
+    if full:
+        # later blocks are keyed on (total bucket, block size), first ones
+        # on the block size alone: per (total bucket x speaker) one stream
+        # holding every reachable size as a later block, and one
+        # single-block stream per other size for the first blocks; the
+        # threshold bucket also gets a stream past
+        # INCREMENTAL_LATENT_MIN_TOTAL
+        for s in speakers:
+            for c in sizes[1:]:
+                entries.append(stream_entry(s, [c]))
+            for tb in totals:
+                entries.append(stream_entry(s, _later_cover_schedule(tb)))
+                if (tb >= INCREMENTAL_LATENT_MIN_TOTAL
+                        and sum(_later_cover_schedule(tb))
+                        < INCREMENTAL_LATENT_MIN_TOTAL):
+                    entries.append(stream_entry(s, _later_cover_schedule(
+                        tb, min_total=INCREMENTAL_LATENT_MIN_TOTAL)))
+    else:
+        for s in speakers:
+            entries.append(stream_entry(s, [160] * 4))   # default schedule
+            entries.append(stream_entry(s, list(sizes)))  # growing ramp
+    # a batch program is keyed on its batch size and sequence length too
+    # (the server groups requests by identical sampler parameters), so the
+    # batch entries cover the one-shot entries' sequence lengths
+    for b in batch_sizes:
+        for s in speakers:
+            for q in seqs:
+                entries.append({"kind": "batch", "batch_size": int(b),
+                                "speaker_bucket": s, "sequence_length": q})
+    return entries
+
+
+def batch_size_buckets(max_batch: int) -> Tuple[int, ...]:
+    """The batch sizes the micro-batch server pads its groups to: powers of
+    two below max_batch, and max_batch.  Every batch size is its own
+    (G*B)-row sampler program, and a drain can gather any count from 1 to
+    max_batch: padding to this set keeps O(log max_batch) programs, not
+    one per count (serve/server.py)."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    out = {max_batch}
+    b = 1
+    while b < max_batch:
+        out.add(b)
+        b *= 2
+    return tuple(sorted(out))
+
+
+def pick_batch_bucket(n: int, max_batch: int) -> int:
+    """The smallest batch bucket >= n (n in 1..max_batch)."""
+    for b in batch_size_buckets(max_batch):
+        if b >= n:
+            return b
+    raise ValueError(f"batch of {n} exceeds max_batch {max_batch}")

@@ -34,12 +34,13 @@ reference: handler.py:797-803):
     tracks batch occupancy and queue depth, and a rate-limited warning
     logs when the queue backs up.
 
-The JAX server pads every group to a batch-size bucket
-(presets.batch_size_buckets) because each distinct batch size compiles
-its own XLA program.  An eager PyTorch pass compiles nothing per shape,
-so here a group runs at its own size.  The batch's rows are independent
-(per-row noise, per-row masks), so no request's output depends on the
-group it lands in beyond float reduction order.
+Every group is padded to a batch-size bucket (presets.batch_size_buckets,
+as the JAX server pads it): each distinct batch size is its own captured
+sampler program (a CUDA graph per shape, utils/programs.py), and padding
+keeps them to O(log max_batch), the ones warmup_compile captures.  Padded
+rows repeat the last request and their outputs are dropped.  The batch's
+rows are independent (per-row noise, per-row masks), so no request's
+output depends on the group it lands in beyond float reduction order.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from typing import Dict, List, Optional
 from ..pipeline.pipeline import EchoModels
 from . import metrics
 from .batcher import BatchRequest, BatchResult, group_compatible, run_batch
+from .presets import pick_batch_bucket
 
 log = logging.getLogger("echo_tts_torch.serve")
 
@@ -290,10 +292,15 @@ class MicroBatchServer:
         with self._stats_lock:
             self._in_flight = len(live)
         try:
+            # pad to a batch bucket (module docstring); each row keeps its
+            # own seed, so the real requests' audio is the unpadded pass's
+            reqs = [it.request for it in live]
+            bucket = pick_batch_bucket(len(reqs), self.max_batch)
+            padded = reqs + [reqs[-1]] * (bucket - len(reqs))
             with self.device_lock:
                 results = run_batch(
-                    self.models, [it.request for it in live], live[0].params,
-                    speaker_bucket=self.speaker_bucket)
+                    self.models, padded, live[0].params,
+                    speaker_bucket=self.speaker_bucket)[:len(reqs)]
             done = 0
             for it, res in zip(live, results):
                 if not it.future.done():  # watchdog may have expired it

@@ -21,6 +21,12 @@ the TOP kernels that took the most device time; the hand-written kernels
 whether or not they are among the TOP, so their share can be read off.  The last line is one JSON
 object with those numbers.
 
+The speaker encode, the sampler and the decode are captured programs
+(utils/programs.py, a CUDA graph per key and shape): the warm-up call
+captures them, and every run after it replays them.  The same command
+from a tree before them (a `git archive` of it) profiles the eager path,
+which is how the two are compared.
+
 With --stream it profiles instead the first chunk of chip_smoke.py's
 streaming request (e): stream_synthesize on growing_schedule(640) with
 that voice, pre-encoded so that the stage is the prefill, the 40-latent

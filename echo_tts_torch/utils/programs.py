@@ -1,0 +1,360 @@
+"""Captured programs: the port's stand-in for the JAX package's `jax.jit`
+programs under `functools.lru_cache`.
+
+The JAX package never runs a serving path op by op: each serving core is
+one jitted program per static configuration (the lru_cache key) and input
+shape, and the shape buckets keep that set finite.  On a CUDA card the
+counterpart is a CUDA graph: the body is captured once per static key and
+input shapes and dtypes, then replayed with one launch, so that the host
+issues one call where it issued thousands of kernel launches.
+
+A `ProgramCache` holds the programs of one kind (the Euler sampler, the
+codec's encode, its decode, the bench's stages), least recently used
+first, up to its bound.  Each program belongs to an owner, the module
+whose weights its graph reads (the DiT, the codec): the cache keeps only
+a weak reference to it, and a program whose owner has been freed is never
+replayed and is dropped at the next call, with its graph and its memory.
+The body receives the owner as its first argument and must hold no other
+reference to it.
+
+A call, `cache(key, owner, inputs, make_body)`:
+
+  * looks the program up by (key, the owner's identity, the structure and
+    the shapes, dtypes and devices of the input tensors);
+  * on a miss, copies the inputs into static buffers of the program,
+    calls `make_body()` once (the per-key constants are built there) and
+    runs the body eagerly on the buffers.  That run is the warm-up
+    PyTorch asks for before a capture (the kernels are built, their
+    shared-memory attributes set, every cached table the body reads is
+    made) and its result answers the call.  Then, on a card, the body is
+    captured with `torch.cuda.graph` into one memory pool that every
+    program of the process shares; capture runs no kernel;
+  * on a hit, copies the inputs into the static buffers with `copy_`,
+    replays the graph and returns a clone of the static output: the next
+    replay overwrites the static output, and a caller may still hold it
+    (run_batch slices the sampler's latents for its decodes).
+
+On the CPU the same plumbing runs (static buffers, copy in, clone out),
+but the body is called directly, because there is nothing to capture; so
+the CPU tests run everything but the capture.  There is no switch that
+turns capture off: a capture that fails raises, and nothing falls back to
+the eager body.  The fix for a body that cannot be captured (a `.item()`,
+`bool(tensor)`, `.cpu()` or a pageable host copy inside it: anything that
+makes the host wait on the card) is in the body.
+
+Two things the kernels' wrappers do on the host need the program's help:
+
+  * launch counts.  A wrapper counts a launch when Python calls it; a
+    replay calls no Python.  Each counter registered with
+    `register_counters` is read before and after the capture, set back
+    (the capture launched nothing), and the difference is added on every
+    replay, so the counts stay exact;
+  * tensors made outside the graph that the graph reads (the RoPE and
+    timestep tables, the residual stacks' kernel-layout weights), which
+    live in caches that can drop them.  Their makers pass them through
+    `hold`, and the program being built keeps a reference to each.
+
+Concurrency.  All programs share one memory pool, so two of them must
+never replay at the same time: one replay's temporaries are another's.
+Every call runs under one process-wide lock, on the calling thread's
+current stream (PyTorch's default stream unless a caller set another),
+so calls and their replays queue in one order.  The micro-batching
+server already serialises its device work (serve/server.py,
+MicroBatchServer.device_lock), and the handler's streams hold the same
+lock.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+_COUNTERS: List[Tuple[object, str]] = []   # the kernel wrappers' launch counts
+_CACHES: List["ProgramCache"] = []
+_POOLS: Dict[int, list] = {}   # device index -> [pool handle, live graphs]
+_LOCK = threading.RLock()
+_LOCAL = threading.local()                  # .held: the programs being built
+CAPTURES: List[Tuple[str, float]] = []      # (cache name, capture seconds)
+
+
+def register_counters(owner: object, *attrs: str) -> None:
+    """Make `owner.<attr>` (a kernel wrapper's launch count) exact under
+    replay: a capture's launches are taken back and added on each replay."""
+    for attr in attrs:
+        if (owner, attr) not in _COUNTERS:
+            _COUNTERS.append((owner, attr))
+
+
+def hold(obj):
+    """Return obj; a program being built (its eager run or its capture)
+    keeps a reference to it, because its graph may read it."""
+    stack = getattr(_LOCAL, "held", None)
+    if stack:
+        stack[-1][id(obj)] = obj
+    return obj
+
+
+@contextlib.contextmanager
+def _holding(held: dict):
+    stack = getattr(_LOCAL, "held", None)
+    if stack is None:
+        stack = _LOCAL.held = []
+    stack.append(held)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _pool(device: torch.device) -> list:
+    """[handle, live graphs] of the device's shared pool.  The caching
+    allocator retires a pool with its last graph and refuses its handle
+    after that, so a pool whose graphs are all gone is replaced."""
+    idx = _device_index(device)
+    if idx not in _POOLS:
+        with torch.cuda.device(idx):
+            _POOLS[idx] = [torch.cuda.graph_pool_handle(), 0]
+    return _POOLS[idx]
+
+
+def _graph_freed(idx: int, pool: list) -> None:
+    pool[1] -= 1
+    if pool[1] == 0 and _POOLS.get(idx) is pool:
+        del _POOLS[idx]
+
+
+# ---------------------------------------------------------------------------
+# input and output trees: tensors (or None) in tuples, named tuples, lists
+# and dicts
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, leaves: list):
+    """A hashable description of tree's structure; its tensors appended to
+    leaves in order."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return None
+    if isinstance(tree, dict):
+        keys = tuple(tree)
+        return ("dict", keys, tuple(_flatten(tree[k], leaves) for k in keys))
+    if isinstance(tree, (tuple, list)):
+        kind = type(tree) if hasattr(tree, "_fields") else type(tree).__name__
+        return (kind, tuple(_flatten(x, leaves) for x in tree))
+    raise TypeError(f"a program's inputs and outputs are tensors in tuples, "
+                    f"lists and dicts; got {type(tree).__name__}")
+
+
+def _unflatten(spec, leaves):
+    it = iter(leaves)
+
+    def build(s):
+        if s is None:
+            return next(it)
+        if s[0] == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        items = [build(c) for c in s[1]]
+        if s[0] == "list":
+            return items
+        if s[0] == "tuple":
+            return tuple(items)
+        return s[0](*items)                 # a named tuple
+    return build(spec)
+
+
+def _clone_tree(tree):
+    leaves = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, [None if x is None else x.clone() for x in leaves])
+
+
+def _static_copy(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A buffer like x holding x's values.  It is a normal tensor, even
+    when made under inference mode, so that a later call outside
+    inference mode may still copy into it."""
+    if x is None:
+        return None
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x)
+
+
+# ---------------------------------------------------------------------------
+# one program, and the cache of a kind of them
+# ---------------------------------------------------------------------------
+
+class Program:
+    """One captured body: its static input buffers, its graph and static
+    output (None on the CPU), the launches its capture recorded by
+    counter, and what it holds."""
+
+    def __init__(self, owner, body: Callable, spec, static_in: list):
+        self.owner_ref = weakref.ref(owner)
+        self.body, self.spec, self.static_in = body, spec, static_in
+        self.graph = None
+        self.static_out = None
+        self.launches: List[Tuple[int, int]] = []
+        self.held: Dict[int, object] = {}
+        self.capture_s = 0.0
+
+    def _call_body(self, owner):
+        with _holding(self.held):
+            return self.body(owner, *_unflatten(self.spec, self.static_in))
+
+    def capture(self, owner, device: torch.device, name: str) -> None:
+        snapshot = list(_COUNTERS)
+        before = [getattr(o, a) for o, a in snapshot]
+        graph = torch.cuda.CUDAGraph()
+        pool, idx = _pool(device), _device_index(device)
+        t0 = time.perf_counter()
+        captured = False
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(graph,
+                                                             pool=pool[0]):
+                out = self._call_body(owner)
+            captured = True
+        finally:
+            after = [getattr(o, a) for o, a in snapshot]
+            for (o, a), n in zip(snapshot, before):
+                setattr(o, a, n)
+            if not captured and pool[1] == 0 and _POOLS.get(idx) is pool:
+                del _POOLS[idx]             # retired with the failed graph
+        pool[1] += 1
+        weakref.finalize(self, _graph_freed, idx, pool)
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.static_out = graph, out
+        self.launches = [(_COUNTERS.index(c), n1 - n0)
+                         for c, n0, n1 in zip(snapshot, before, after)
+                         if n1 != n0]
+        CAPTURES.append((name, self.capture_s))
+
+    def run(self, owner, leaves: list):
+        for s, x in zip(self.static_in, leaves):
+            if s is not None:
+                s.copy_(x)
+        if self.graph is None:
+            out = self.body(owner, *_unflatten(self.spec, self.static_in))
+        else:
+            self.graph.replay()
+            for i, n in self.launches:
+                o, a = _COUNTERS[i]
+                setattr(o, a, getattr(o, a) + n)
+            out = self.static_out
+        return _clone_tree(out)
+
+
+class ProgramCache:
+    """The programs of one kind, at most `maxsize`, least recently used
+    dropped first (module docstring)."""
+
+    def __init__(self, name: str, maxsize: int):
+        self.name, self.maxsize = name, maxsize
+        self.entries: "collections.OrderedDict[tuple, Program]" = (
+            collections.OrderedDict())
+        self.misses = 0
+        self.hits = 0
+        self._dead: List[int] = []          # ids of owners freed since
+        self._watched: set = set()
+        _CACHES.append(self)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def keys(self) -> List[tuple]:
+        """The static keys of the live programs (without the owner and
+        the shapes), least recently used first."""
+        return [k[0] for k in self.entries]
+
+    def clear(self) -> None:
+        with _LOCK:
+            self.entries.clear()
+
+    def _owner_freed(self, owner_id: int) -> None:
+        # runs inside the garbage collector, maybe during another
+        # program's capture: only note it; _purge drops the programs
+        self._dead.append(owner_id)
+
+    def _purge(self) -> None:
+        while self._dead:
+            owner_id = self._dead.pop()
+            self._watched.discard(owner_id)
+            for k in [k for k in self.entries if k[1] == owner_id]:
+                del self.entries[k]
+
+    def __call__(self, key: tuple, owner, inputs, make_body: Callable):
+        """The program for (key, owner, inputs' shapes) run on inputs (a
+        sequence of trees of tensors, all on one device); make_body() ->
+        body, with body(owner, *inputs) -> a tree of tensors it made, is
+        called on a miss."""
+        leaves: list = []
+        spec = _flatten(tuple(inputs), leaves)
+        shapes = tuple(None if x is None else (tuple(x.shape), x.dtype, x.device)
+                       for x in leaves)
+        full = (key, id(owner), spec, shapes)
+        with _LOCK:
+            self._purge()
+            prog = self.entries.get(full)
+            if prog is not None and prog.owner_ref() is owner:
+                self.entries.move_to_end(full)
+                self.hits += 1
+                return prog.run(owner, leaves)
+            devices = {x.device for x in leaves if x is not None}
+            if len(devices) != 1:
+                raise ValueError(f"a program's inputs lie on one device; got "
+                                 f"{sorted(map(str, devices))}")
+            device = devices.pop()
+            self.misses += 1
+            prog = Program(owner, make_body(), spec,
+                           [_static_copy(x) for x in leaves])
+            out = prog._call_body(owner)            # the eager miss run
+            if device.type == "cuda":
+                prog.capture(owner, device, self.name)
+            self.entries[full] = prog
+            self.entries.move_to_end(full)
+            if id(owner) not in self._watched:
+                self._watched.add(id(owner))
+                weakref.finalize(owner, self._owner_freed, id(owner))
+            while len(self.entries) > self.maxsize:
+                self.entries.popitem(last=False)
+            return out
+
+
+def caches() -> List[ProgramCache]:
+    return list(_CACHES)
+
+
+def clear_all() -> None:
+    """Drop every program of every cache (their graphs and static
+    buffers; the pool's memory returns at the next empty_cache)."""
+    for cache in _CACHES:
+        cache.clear()
+
+
+def stats() -> Dict[str, Dict[str, int]]:
+    """{cache name: entries, misses, hits}."""
+    return {c.name: {"entries": len(c), "misses": c.misses, "hits": c.hits}
+            for c in _CACHES}
+
+
+def pool_bytes(device) -> int:
+    """Bytes the shared graph pool reserves on `device` (0 before the
+    first capture there), from the caching allocator's snapshot."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    idx = _device_index(device)
+    if idx not in _POOLS:
+        return 0
+    pool = tuple(_POOLS[idx][0])
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if seg["device"] == idx
+               and tuple(seg.get("segment_pool_id", ())) == pool)

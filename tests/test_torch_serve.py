@@ -590,10 +590,13 @@ def test_serve_stdin_concurrent(pair, cfg, monkeypatch):
 
 def test_main_warmup_compile_and_serial_stdin(pair, env, monkeypatch,
                                               capsys):
-    """`main --warmup-compile` answers one short request (there are no
-    kernels to build on the CPU); `main` without runpod serves JSON lines
-    on stdin, one envelope a line, a bad line answered with the
-    JSONDecodeError envelope."""
+    """`main --warmup-compile` runs the default warm-up manifest's one-shot
+    entries (cut here to the speakerless one at 8 latents; there are no
+    kernels to build on the CPU) and then serves in the same process,
+    where the programs live: without runpod, JSON lines on stdin, one
+    envelope a line, a bad line answered with the JSONDecodeError
+    envelope.  `--warmup-full --concurrent 4` asks for the whole surface
+    and the batch buckets (1, 2, 4) before serving concurrently."""
     import io
     import sys
     _, port = pair
@@ -601,21 +604,35 @@ def test_main_warmup_compile_and_serial_stdin(pair, env, monkeypatch,
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(th.models_mod, "load_models", lambda *a, **k: port)
     monkeypatch.setattr(th, "SAMPLER_DEFAULTS", {**th.SAMPLER_DEFAULTS, **FAST})
-    texts = []
+    texts, asked = [], []
     real = th.sample_pipeline
     monkeypatch.setattr(th, "sample_pipeline", lambda *a, **k: (
         texts.append(a[2]) or real(*a, **k)))
-    th.main(["--warmup-compile", "--allow-random-weights"])
-    assert texts == ["Warmup utterance."]
+    real_manifest = tpresets.warmup_manifest
+
+    def manifest(batch_sizes=(), *, full=False, default_sequence_length=None):
+        asked.append((tuple(batch_sizes), full))
+        return [e for e in real_manifest(batch_sizes, full=full,
+                                         default_sequence_length=8)
+                if e["speaker_bucket"] is None and e["kind"] != "stream"
+                and e["sequence_length"] == 8]
+
+    monkeypatch.setattr(tpresets, "warmup_manifest", manifest)
     monkeypatch.setitem(sys.modules, "runpod", None)   # not installed
-    monkeypatch.setattr(sys, "stdin", io.StringIO(
-        json.dumps({"input": {"text": "Hi.", "parameters": FAST}})
-        + "\n\n{not json\n"))
+    job = json.dumps({"input": {"text": "Hi.", "parameters": FAST}})
+    monkeypatch.setattr(sys, "stdin", io.StringIO(job + "\n\n{not json\n"))
     capsys.readouterr()
-    th.main(["--allow-random-weights"])
+    th.main(["--warmup-compile", "--allow-random-weights"])
+    assert asked == [((), False)]
+    assert texts == ["Warmup utterance.", "Hi."]
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert out[0]["status"] == "success"
     assert out[1]["error_type"] == "JSONDecodeError" and len(out) == 2
+    monkeypatch.setattr(sys, "stdin", io.StringIO(job + "\n"))
+    th.main(["--warmup-full", "--concurrent", "4", "--allow-random-weights"])
+    assert asked[1] == ((1, 2, 4), True)
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [o["status"] for o in out] == ["success"]
 
 
 # ---------------------------------------------------------------------------
