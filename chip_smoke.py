@@ -40,12 +40,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      one stream of 16 x 320 = 5120 latents (the largest schedule serving
      accepts) with its report and gates (tail/mid <= 1.5, memory_allocated
      growth <= 256 MB, 5120 x 2048 finite samples), kernel A's shapes
-     recorded and the measured stream's launches exact; (s)
+     recorded and the measured stream's launches exact, and the drain's
+     timing (the first later block under 1.5 and the last above 0.5 times
+     the median block: no chunk waits for the next block); (s)
      tools/check_fullsize.check, the full-depth CFG forward in bf16 within
      rel-RMS 0.05 and max-abs 0.30 of fp32, the W8A8 forward beside it;
      then the measurement modules (echo_tts_torch/examples/bench_*.py,
      given phase 3's models, one timed call a stage, each one JSON line
-     with its numbers finite and its launches exact): (t)
+     with its numbers finite and its launches exact; the sampler-bound
+     ones, (t), (u) and (w)'s long reference, stream int8 and latent
+     prefix, at CHECK_STEPS = 8 Euler steps, depth cut for time): (t)
      bench_kv_quant --long-speaker --w4a8, the sampler at B = 1 and at
      B = 8 over the 6400-latent speaker bucket with bf16 and int8 static
      K/V (kernel A at GB = 24 and 8, T = 2368; the K/V sizes those of 24 x
@@ -68,19 +72,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernels A, B (one-shot and history form) and C exact and their shapes
      those phase 4 holds (bench_expected gives the arithmetic: kernel A at
      T = 928 for the one-shot stages and the B = 8 pass at GB = 24 and 8,
-     T = 1238 for the streamed blocks after the first), its line printed
+     T = 1248 for the streamed blocks after the first), its line printed
      on a line of its own; (z) the compiled-program layer
      (echo_tts_torch/utils/programs.py: the sampler, the codec and the
      bench's stages as one CUDA graph per key and shape, which every
      request above already ran through, their launch counts exact under
      replay): request (b)'s inputs in bf16, with int8 static K/V, and in
      request (d)'s int8 modes, replayed bit for bit their eager run, and a second
-     input set at the same key bit for bit its own eager run; the default
+     input set at the same key bit for bit its own eager run; the streams
+     as programs (the fused first block, the later blocks with their start
+     an input tensor, the prefix's appends, the block decodes), at 40 steps
+     a block: (y)'s 1240-latent stream (whose replay (y) holds bit for bit
+     against its eager warm-up) and (g)'s W8A8 stream replayed bit for bit
+     their eager runs, a second text and seed bit for bit its own, one
+     later-block program per block size ((e)'s is (q)'s); the
+     default
      warm-up manifest with batch_sizes=(8,) through
      serve.handler.warmup_compile, each entry's capture seconds, the
-     shared pool's bytes and memory_reserved, then a second pass that
-     captures nothing and reserves no more (request_programs says each
-     gate);
+     shared pool's and the static inputs' bytes and memory_reserved, then
+     a second pass that captures nothing, its streams included, and
+     reserves no more (request_programs says each gate);
      then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
      batch of the DataConfig shapes, t and eps fixed, three steps in each
@@ -142,7 +153,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      15360 and 5120, each (K, N)) and (t)'s (M = 120, K = 2048, N =
      5888); kernel A at request (y)'s B = 8 pass (GB = 24 and 8, T = 928,
      200 text columns valid) and its streamed blocks (GB = 3 and 1, S =
-     320 and 80, T = 1238 with 230 and 10 of 310 latent columns valid),
+     320 and 80, T = 1248 with 230 and 10 of 320 latent columns valid)
+     and request (g)'s (GB = 3 and 1, S = 80, T = 1008 with 10 of 80),
      and kernel B at (y)'s decode, batch-4 and streamed-block shapes that
      no other case holds;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
@@ -182,6 +194,12 @@ GENERATE_PRESET, GENERATE_SEED = "Independent-High-CFG", 11   # request (p)
 # request (r)'s last block: latent-prefix columns 5120 / 4, valid 4800 / 4;
 # the soak's prompt fills every text column
 SOAK_LATENT_COLUMNS, SOAK_LAST_VALID, SOAK_TEXT_VALID = 1280, 1200, 768
+# request (r)'s drain: the first later block under SOAK_FIRST_LATER_MAX
+# times the median block, the last above SOAK_LAST_MIN times it
+SOAK_FIRST_LATER_MAX, SOAK_LAST_MIN = 1.5, 0.5
+# request (g)'s later block: 320 / 4 latent, 768 text and 640 / 4 speaker
+# columns
+G_STREAM_T = 80 + 768 + 160
 # request (x), tools/validate_weights at its defaults: sequence 160 over 24
 # text bytes (20 valid) and 64 speaker latents (16 patches), so kernel A's
 # static K/V is T = 40 columns, under one 128-column tile, at GB = 3 on CFG
@@ -235,6 +253,14 @@ LONG_TEXT = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Log the seconds since the script started, after `what`."""
+    log(f"  [{time.perf_counter() - _T0:.1f} s] {what} done")
 
 
 def errors(got, want) -> tuple:
@@ -303,19 +329,35 @@ def note(record) -> None:
         record()
 
 
+# (cache name, the host's resident bytes before the capture, after it)
+CAPTURE_RSS = []
+
+
+def host_rss() -> int:
+    """This process's resident host memory, bytes (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
 def install_program_notes() -> None:
-    """Let programs keep the notes their captures take (`note`)."""
+    """Let programs keep the notes their captures take (`note`); record
+    each capture's host memory (CAPTURE_RSS)."""
     from echo_tts_torch.utils import programs
     prog = programs.Program
     capture, run = prog.capture, prog.run
 
-    def noting_capture(self, *a, **k):
+    def noting_capture(self, owner, device, name):
         global _CAPTURE_NOTES
         _CAPTURE_NOTES = []
+        rss = host_rss()
         try:
-            capture(self, *a, **k)
+            capture(self, owner, device, name)
         finally:
             self.notes, _CAPTURE_NOTES = _CAPTURE_NOTES, None
+            CAPTURE_RSS.append((name, rss, host_rss()))
 
     def noting_run(self, *a, **k):
         out = run(self, *a, **k)
@@ -327,12 +369,27 @@ def install_program_notes() -> None:
     prog.capture, prog.run = noting_capture, noting_run
 
 
-def fresh_programs() -> None:
-    """Drop every program, so that the next call at each key runs eagerly
-    (and is recorded as it runs); the pool's memory is returned."""
+# the streams' program caches (sampler/blockwise.py, pipeline.py,
+# serve/streaming.py)
+STREAM_CACHES = ("prefill", "latent_inc", "block", "fused_first",
+                 "decode_block", "encode_block")
+
+
+def stream_misses() -> int:
+    """The streams' program caches' misses so far (each a capture)."""
+    from echo_tts_torch.utils import programs
+    return sum(c.misses for c in programs.caches() if c.name in STREAM_CACHES)
+
+
+def fresh_programs(streams: bool = True) -> None:
+    """Drop every program (with streams=False every one but the streams'),
+    so that the next call at each key runs eagerly (and is recorded as it
+    runs); the pool's memory is returned."""
     import torch
     from echo_tts_torch.utils import programs
-    programs.clear_all()
+    for cache in programs.caches():
+        if streams or cache.name not in STREAM_CACHES:
+            cache.clear()
     torch.cuda.empty_cache()
 
 
@@ -938,7 +995,11 @@ def phase_kernels():
                                  lat_valid=valid)
                   for i, (gb, s, t, n_lat, valid) in enumerate(
                       [(3, 40, 778, 0, 0), (3, 320, 938, 160, 70),
-                       (1, 80, 938, 160, 10), (3, 320, 1098, 320, 70)])]
+                       (1, 80, 938, 160, 10), (3, 320, 1098, 320, 70),
+                       # request (g)'s later block: [40, 80] padded to the
+                       # 320-latent bucket, 80 latent columns (10 valid),
+                       # the voice padded to its 640-latent bucket
+                       (3, 80, G_STREAM_T, 80, 10), (1, 80, G_STREAM_T, 80, 10)])]
     att += att_stream
     # request (r)'s last block: the block of 320 at 4800 in a 5120-latent
     # stream, T = 1280 latent + 768 text + 160 speaker columns with 1200
@@ -994,7 +1055,7 @@ def phase_kernels():
             for gb, s, t in sorted(VALIDATE_ATTN, reverse=True)]
     # request (y)'s: the B = 8 pass at T = 928 (200 of 768 text columns and
     # all 160 speaker columns valid), GB = 24 and 8; the streamed blocks
-    # after the first at T = 1238 (BENCH_LAT latent-prefix columns, 230
+    # after the first at T = 1248 (BENCH_LAT latent-prefix columns, 230
     # valid at the last block of 320 and 10 at the block of 80; the text
     # columns STREAM_TEXT's), GB = 3 and 1
     att_bench = [attention_case(gb, 640, BENCH_T, seed=190 + i, b=8,
@@ -1264,9 +1325,11 @@ def phase_main_path(card: str):
     log(f"  W8A8 + int8 K/V vs bf16, one dit_forward_static at GB=3 S=640 "
         f"T={kv[0].shape[2]}: rel-RMS {rel:.3e} (information only)")
 
+    stamp("requests a-d")
     got, stream_audio = request_stream(models, voice, counters, n_voice_chunks)
     for k, v in got.items():
         launches[k] += v
+    stamp("request e")
     incremental_check(models, lat, mask, ids_t, tmask_t)
     del qmodels
     serve_models.clear_models()
@@ -1284,16 +1347,21 @@ def phase_main_path(card: str):
                     request_batch(models, counters, card)):
             for k, v in got.items():
                 launches[k] += v
+    stamp("requests f-h")
 
     # the runnable entry points: (p) generate, (q) streaming_demo, (r) the
     # long-stream soak, (s) the full-depth bf16 forward against fp32
-    for got in (request_generate(models, counters, n_layers, n_voice_chunks),
-                request_stream_demo(models, counters, stream_audio, n_layers,
-                                    n_voice_chunks),
-                request_soak(models, counters, card),
-                request_fullsize(models, counters, n_layers, n_int8_linears)):
-        for k, v in got.items():
+    for req, call in (
+            ("p", lambda: request_generate(models, counters, n_layers,
+                                           n_voice_chunks)),
+            ("q", lambda: request_stream_demo(models, counters, stream_audio,
+                                              n_layers, n_voice_chunks)),
+            ("r", lambda: request_soak(models, counters, card)),
+            ("s", lambda: request_fullsize(models, counters, n_layers,
+                                           n_int8_linears))):
+        for k, v in call().items():
             launches[k] += v
+        stamp(f"request {req}")
     # the measurement modules: (t) int8 static K/V at B = 8 over the
     # 6400-latent bucket and the M = 120 scan, (u) the W8A8 surfaces, (v)
     # the train step's batch sweep, (w) the other seven
@@ -1303,12 +1371,15 @@ def phase_main_path(card: str):
     for k, v in request_validate(models, counters, n_layers,
                                  n_int8_linears).items():
         launches[k] += v
+    stamp("request x")
     # (y) the headline bench
     for k, v in request_bench(models, counters, card).items():
         launches[k] += v
+    stamp("request y")
     # (z) the compiled-program layer
     for k, v in request_programs(models, req_b, counters, card).items():
         launches[k] += v
+    stamp("request z")
     return launches, req_b
 
 
@@ -1336,19 +1407,27 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> tuple:
     spl, rate = models.dac_cfg.frame_length, models.dac_cfg.sample_rate
     blocks, decode_ms = [], []
     block_decode = sst.ae_decode_block
+    iterate = sst.bw.iter_blockwise_euler_cfg_independent_guidances
 
     def recording_decode(m, state, latents):
-        # the latents each block decodes, and the decode's own wall time
+        # the decode's own wall time (the blocks after the first: the
+        # first decodes inside the fused first-block program)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = block_decode(m, state, latents)
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
-        blocks.append(latents.clone())
         return out
+
+    def recording_blocks(*a, **k):
+        # the latents of every block, the fused first one's included
+        for out in iterate(*a, **k):
+            blocks.append(out[1].clone())
+            yield out
 
     _reset(counters)
     sst.ae_decode_block = recording_decode
+    sst.bw.iter_blockwise_euler_cfg_independent_guidances = recording_blocks
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1359,6 +1438,7 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> tuple:
             chunks.append(chunk)
     finally:
         sst.ae_decode_block = block_decode
+        sst.bw.iter_blockwise_euler_cfg_independent_guidances = iterate
     got = _read(counters)
     n = len(schedule)
     want = {"joint_attention": cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n,
@@ -1421,7 +1501,8 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> tuple:
             f"arrived {arrival * 1e3:.1f} ms, audio so far {cum:.3f} s")
     log(f"  request e: TTFA {arrivals[0] * 1e3:.1f} ms, streamed RTF "
         f"{audio_s / wall:.3f}x, playback stall {stall * 1e3:.1f} ms after "
-        f"first audio; decode_ms per block {[round(v, 1) for v in decode_ms]}")
+        f"first audio; decode_ms per block after the first "
+        f"{[round(v, 1) for v in decode_ms]}")
     return got, streamed.numpy()
 
 
@@ -1700,7 +1781,8 @@ def request_batch(models, counters, card: str) -> dict:
         note(lambda: res_rows.append(rows))
         return run_res_stack(x, *a, **k)
 
-    fresh_programs()
+    # the streams' programs stay: request (q) replays request (e)'s
+    fresh_programs(streams=False)
     server = MicroBatchServer(models, max_batch=8, max_wait_s=0.5)
     barrier = threading.Barrier(len(reqs))
     futures = [None] * len(reqs)
@@ -1870,8 +1952,9 @@ def request_stream_demo(models, counters, stream_audio, n_layers: int,
                         n_voice_chunks: int) -> dict:
     """Request (q): examples/streaming_demo.main --total-latents
     STREAM_TOTAL with request (e)'s text, voice and seed: its WAV holds
-    exactly (e)'s chunks concatenated; launches as (e)'s.  Returns the
-    launch counts."""
+    exactly (e)'s chunks concatenated, its stream replaying the programs
+    (e)'s eager run captured; launches as (e)'s.  Returns the launch
+    counts."""
     import tempfile
 
     import torch
@@ -1909,7 +1992,10 @@ def request_soak(models, counters, card: str) -> dict:
     """Request (r): examples/soak_long_stream.main at its full schedule (16
     blocks of 320 latents, 5120, the largest that serving accepts), given
     phase 3's models.  Its report is printed and every gate holds: tail/mid
-    <= 1.5, memory_allocated growth <= 256 MB, 5120 x 2048 finite samples.
+    <= 1.5, memory_allocated growth <= 256 MB, 5120 x 2048 finite samples;
+    the first later block under SOAK_FIRST_LATER_MAX and the last above
+    SOAK_LAST_MIN times the median block (the pipelined drain yields each
+    chunk once its own block is done, not the next).
     The measured stream's launches are exact (kernel A 24 x 40 x 16 =
     15360; kernel B's history form 3 a block, 48; its one-shot form 0, the
     speaker given as latents), and so are the whole call's (its warm pass
@@ -1926,17 +2012,32 @@ def request_soak(models, counters, card: str) -> dict:
 
     n_blocks = 16
     steps, n_layers = SAMPLER_DEFAULTS["num_steps"], models.dit_cfg.num_layers
+    per_block = n_layers * steps
     shapes, last = collections.Counter(), {}
     run_attention = tdit.fused_joint_attention
 
     def recording_attention(q, *a, **k):
-        shapes[(q.shape[0], q.shape[1], a[2].shape[1])] += 1
-        last["mask"] = a[4]
+        key, mask = (q.shape[0], q.shape[1], a[2].shape[1]), a[4]
+
+        def record():
+            shapes[key] += 1
+            if sum(shapes.values()) % per_block == 0:
+                # a block's last call: under a replay the mask is the
+                # graph's own buffer, which holds this replay's values
+                # until the next program runs.  One clone a block: a clone
+                # a call would queue 960 launches behind each replayed
+                # block, fill the card's launch queue and hold the host in
+                # the next replay until the block is done, which the drain
+                # gate below would read as a chunk held back
+                last["mask"] = mask.clone()
+        note(record)
         return run_attention(q, *a, **k)
 
     name = "r: examples.soak_long_stream, 16 x 320 latents"
     import torch
+    from echo_tts_torch.sampler import blockwise as bw
     from echo_tts_torch.utils import programs
+    later0 = bw.BLOCK_PROGRAMS.misses
     log(f"  request r: before it, memory_allocated "
         f"{torch.cuda.memory_allocated()}, memory_reserved "
         f"{torch.cuda.memory_reserved()}, the programs' pool "
@@ -1954,11 +2055,13 @@ def request_soak(models, counters, card: str) -> dict:
             tdit.fused_joint_attention = run_attention
         with open(path) as f:
             report = json.load(f)
-    per_block = n_layers * steps
     n_calls = n_blocks + soak.WARM_BLOCKS
     want = _want(attn=per_block * n_calls, res_stream=3 * n_calls)
     want_measured = {"joint_attention": per_block * n_blocks, "res_stack": 0,
                      "res_stack_stream": 3 * n_blocks}
+    # the warm pass at the measured stream's bucket captured its one
+    # later-block program, which every later block replays
+    later = bw.BLOCK_PROGRAMS.misses - later0
     t_last = SOAK_LATENT_COLUMNS + 768 + 160
     valid = int(last["mask"][0, :SOAK_LATENT_COLUMNS].sum())
     text_valid = int(last["mask"][0, SOAK_LATENT_COLUMNS:
@@ -1971,14 +2074,29 @@ def request_soak(models, counters, card: str) -> dict:
             or "tail_over_mid_ratio" not in report
             or max(t for _, _, t in shapes) != t_last
             or not {(3, 320, t_last), (1, 320, t_last)} <= set(shapes)
-            or valid != SOAK_LAST_VALID or text_valid != SOAK_TEXT_VALID):
+            or valid != SOAK_LAST_VALID or text_valid != SOAK_TEXT_VALID
+            or later != 1):
         raise AssertionError(
-            f"{name}: exit {rc}, failures {report['failures']}; launches "
+            f"{name}: exit {rc}, failures {report['failures']}; later-block "
+            f"programs captured {later}, want 1; launches "
             f"{got}, want {want}; measured {report['launches']}, want "
             f"{want_measured}; kernel A (GB, S, T) {dict(shapes)}; the last "
             f"block's valid latent columns {valid}, text columns "
             f"{text_valid}")
     blocks = report["blocks"]
+    # the pipelined drain yields each chunk once its own block is done: a
+    # chunk held back until the next block is done shows as a first later
+    # block of about two blocks and a last one of about none
+    ms = [b["block_ms"] for b in blocks]
+    median = float(np.median(ms))
+    if not (ms[1] < SOAK_FIRST_LATER_MAX * median
+            and ms[-1] > SOAK_LAST_MIN * median):
+        raise AssertionError(
+            f"{name}: block ms {[round(v, 1) for v in ms]}: the first later "
+            f"block {ms[1]:.1f} (bound {SOAK_FIRST_LATER_MAX} x the median "
+            f"{median:.1f}), the last {ms[-1]:.1f} (bound above "
+            f"{SOAK_LAST_MIN} x the median): a chunk waited for the next "
+            f"block")
     log(f"  request {name}: tail/mid {report['tail_over_mid_ratio']:.4f} "
         f"(bound {soak.TAIL_OVER_MID_BOUND}), memory_allocated growth "
         f"{report['memory_growth_mb']:.3f} MB (bound "
@@ -1990,7 +2108,11 @@ def request_soak(models, counters, card: str) -> dict:
         f"{[round(b['block_ms'], 1) for b in blocks]}; launches measured "
         f"{report['launches']}, whole call {got}; kernel A (GB, S, T) "
         f"{dict(shapes)}, the last block's valid latent columns {valid} of "
-        f"{SOAK_LATENT_COLUMNS}, text columns {text_valid} of 768 ({card})")
+        f"{SOAK_LATENT_COLUMNS}, text columns {text_valid} of 768; one "
+        f"later-block program for the 15 later blocks; the first later "
+        f"block {ms[1] / median:.3f} and the last {ms[-1] / median:.3f} of "
+        f"the median block {median:.1f} ms (bounds {SOAK_FIRST_LATER_MAX}, "
+        f"{SOAK_LAST_MIN}) ({card})")
     return got
 
 
@@ -2038,6 +2160,15 @@ CROSSOVER_TOTAL = 640
 # one timed call of each stage and no warm-up: the requests before them
 # have run every kernel and code path these reach
 BENCH_REPS = ["--warmup", "0", "--reps", "1"]
+# (t), (u) and (w)'s sampler-bound modules (bench_kv_quant,
+# bench_int8_surfaces, bench_long_reference, bench_stream_int8,
+# bench_incremental_crossover) run CHECK_STEPS Euler steps a sampler call,
+# not 40: depth cut to keep the script inside its time, since each of
+# their calls runs once, eagerly, and is captured.  The steps change no
+# kernel shape (CFG and plain steps both run); the 40-step paths are
+# requests (a)-(h), (p)-(s), (y) and (z)
+CHECK_STEPS = 8
+BENCH_STEPS = ["--steps", str(CHECK_STEPS)]
 
 
 def run_bench(module, argv, models) -> dict:
@@ -2091,20 +2222,22 @@ def request_benches(models, counters, card: str) -> dict:
                 request_bench_rest):
         for k, v in req(models, counters, card).items():
             launches[k] += v
+        stamp(req.__name__)
     return launches
 
 
 def request_kv_quant(models, counters, card: str) -> dict:
     """(t) bench_kv_quant --long-speaker --w4a8: the sampler at B = 1 and at
     B = 8 over the 6400-latent speaker bucket, each with bf16 and with int8
-    static K/V (kernel A 960 bf16 and 960 int8-K/V launches per sampler
-    call; at B = 8 GB = 24 and 8, T = 768 + 1600 = 2368), latents finite,
-    the B = 8 K/V sizes those of 24 x 2 x 8 x 2368 x 2048 values (bf16:
-    3552 MiB; int8 with fp32 scales over Dh: 1831.5 MiB), and the M = 120
-    scan (kernel C 24 x 40 launches for W8A8 and for W4A8)."""
-    from echo_tts_torch.examples import bench_kv_quant, stages
+    static K/V, at CHECK_STEPS steps (kernel A 24 x 8 bf16 and 24 x 8
+    int8-K/V launches per sampler call; at B = 8 GB = 24 and 8, T = 768 +
+    1600 = 2368), latents finite, the B = 8 K/V sizes those of 24 x 2 x 8
+    x 2368 x 2048 values (bf16: 3552 MiB; int8 with fp32 scales over Dh:
+    1831.5 MiB), and the M = 120 scan (kernel C 24 x 8 launches for W8A8
+    and for W4A8)."""
+    from echo_tts_torch.examples import bench_kv_quant
     cfg = models.dit_cfg
-    per_call = cfg.num_layers * stages.FULL.steps
+    per_call = cfg.num_layers * CHECK_STEPS
     t_long = 768 + bench_kv_quant.LONG_SPEAKER // cfg.speaker_patch_size
     kv_values = 2 * cfg.num_layers * 8 * t_long * cfg.model_size
     want_mb = (kv_values * 2 / 2**20,
@@ -2120,20 +2253,22 @@ def request_kv_quant(models, counters, card: str) -> dict:
                    else [f"B = 8 row {b8}, want T {t_long}, MiB {want_mb}"]))
 
     return _bench_request(
-        bench_kv_quant, ["--long-speaker", "--w4a8"], models, counters,
+        bench_kv_quant, ["--long-speaker", "--w4a8"] + BENCH_STEPS, models,
+        counters,
         _want(attn=2 * per_call, kv8=2 * per_call, int8=2 * per_call),
         "t: bench_kv_quant, B = 8 over the 6400-latent bucket, --w4a8", check)
 
 
 def request_int8_surfaces(models, counters, card: str) -> dict:
-    """(u) bench_int8_surfaces: the W8A8 request at seq 224 and one B = 8
-    run_batch pass (kernel C 8 x 24 x 40 = 7680 a sampler call, at M = 3 x
-    224 and 224, then 24 x 640 and 8 x 640; kernel A 960; kernel B 3 a
-    decode: 3, then 2 x 3 for the pass's two slices of four)."""
-    from echo_tts_torch.examples import bench_int8_surfaces, stages
-    per_call = models.dit_cfg.num_layers * stages.FULL.steps
+    """(u) bench_int8_surfaces at CHECK_STEPS steps: the W8A8 request at
+    seq 224 and one B = 8 run_batch pass (kernel C 8 x 24 x 8 = 1536 a
+    sampler call, at M = 3 x 224 and 224, then 24 x 640 and 8 x 640;
+    kernel A 192; kernel B 3 a decode: 3, then 2 x 3 for the pass's two
+    slices of four)."""
+    from echo_tts_torch.examples import bench_int8_surfaces
+    per_call = models.dit_cfg.num_layers * CHECK_STEPS
     return _bench_request(
-        bench_int8_surfaces, [], models, counters,
+        bench_int8_surfaces, BENCH_STEPS, models, counters,
         _want(attn=2 * per_call, int8=2 * 8 * per_call, res=3 + 2 * 3),
         "u: bench_int8_surfaces, p50 at seq 224 and a B = 8 pass",
         lambda line: [] if line["audio_finite"] else ["audio not finite"])
@@ -2191,11 +2326,12 @@ def request_bench_rest(models, counters, card: str) -> dict:
     from echo_tts_torch.serve.presets import growing_schedule
     n_layers = models.dit_cfg.num_layers
     per_call = n_layers * stages.FULL.steps
+    per_check = n_layers * CHECK_STEPS          # at BENCH_STEPS
     n_lin = 8                                   # W8A8 linears a block
     few = bench_few_step.FEW_STEPS * n_layers   # no CFG step
     chunks = sum(-(-b // bench_long_reference.CHUNK_LATENTS)
                  for b in bench_long_reference.buckets())
-    stream = len(stages.STREAM_BLOCKS) * per_call
+    stream = len(stages.STREAM_BLOCKS) * per_check
     crossover = len(growing_schedule(CROSSOVER_TOTAL))
     scans = bench_int8.FULL["layers"] * bench_int8.FULL["repeat"] * (3 + 5)
     launches = dict.fromkeys(counters, 0)
@@ -2207,17 +2343,18 @@ def request_bench_rest(models, counters, card: str) -> dict:
                 if not r["rel_rms_vs_plain"] <= REL_RMS_BOUND]
 
     for module, argv, want, check in (
-            (bench_long_reference, [],
-             _want(attn=3 * per_call, res=3 * chunks), None),
+            (bench_long_reference, BENCH_STEPS,
+             _want(attn=3 * per_check, res=3 * chunks), None),
             (bench_few_step, [], _want(attn=2 * few + per_call,
                                        int8=n_lin * few, res=3), None),
-            (bench_stream_int8, [],
+            (bench_stream_int8, BENCH_STEPS,
              _want(attn=2 * stream, int8=n_lin * stream,
                    res_stream=2 * 3 * len(stages.STREAM_BLOCKS)), None),
             (bench_ttfa_breakdown, [], _want(attn=3 * per_call,
                                              res_stream=3 * 3), None),
-            (bench_incremental_crossover, [str(CROSSOVER_TOTAL)],
-             _want(attn=2 * crossover * per_call), None),
+            (bench_incremental_crossover,
+             [str(CROSSOVER_TOTAL)] + BENCH_STEPS,
+             _want(attn=2 * crossover * per_check), None),
             (bench_attention, [],
              _want(attn=3 * len(bench_attention.SHAPES)), attention_rows),
             (bench_int8, [], _want(int8=scans), None)):
@@ -2389,12 +2526,12 @@ def request_validate(models, counters, n_layers: int,
 # valid) and the 640-latent speaker's 160 patches: static K/V T = 928.  Its
 # short request is 224 latents.  Its stream is 1240 latents on
 # STREAM_BLOCKS: the blocks after the first read the carried latent prefix,
-# 1240 / 4 columns (serve/streaming.py sizes it to the stream, where the
-# JAX package pads it to the 1280 bucket), before the text and speaker
-# ones, T = 1238, of which the block's start / 4 are valid.
+# padded to the stream's 1280-latent total bucket, 1280 / 4 columns,
+# before the text and speaker ones, T = 1248, of which the block's start
+# / 4 are valid.
 BENCH_Y_ARGS = ["--warmup", "1", "--reps", "1"]
 BENCH_T, BENCH_TEXT_VALID = 768 + 640 // 4, 200
-BENCH_LAT = 1240 // 4
+BENCH_LAT = 1280 // 4
 BENCH_STREAM_T = BENCH_LAT + BENCH_T
 BENCH_STREAM_VALID = {(80, 10), (160, 30), (320, 70), (320, 150), (320, 230)}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "prefill_ms",
@@ -2492,9 +2629,13 @@ def request_bench(models, counters, card: str) -> dict:
     bench_expected's, the shapes phase 4 holds (BENCH_*); the streamed
     blocks' valid latent columns BENCH_STREAM_VALID, and the cond row's
     text columns 200 on the one-shot stages, STREAM_TEXT's on the streams.
-    Prints the bench's line on a line of its own; returns the launches."""
+    The stream stage's timed call replays bit for bit the programs its
+    warm-up ran eagerly and captured (its inputs and audio are kept in
+    BENCH_STREAM for request (z)).  Prints the bench's line on a line of
+    its own; returns the launches."""
     import collections
     from echo_tts_torch import SAMPLER_DEFAULTS, bench
+    from echo_tts_torch.examples import stages
     from echo_tts_torch.models import dit as tdit
     from echo_tts_torch.models.dac import dac as tdac
     from echo_tts_torch.ops import quant
@@ -2507,15 +2648,19 @@ def request_bench(models, counters, card: str) -> dict:
     per_stage = {}
     shapes = collections.defaultdict(lambda: {k: collections.Counter()
                                               for k in ("attn", "res", "mm")})
-    masks = collections.defaultdict(dict)       # stage -> {id: (T, S, mask)}
+    # stage -> [(T, S, mask)], the mask of the last attention call of each
+    # sampler call or streamed block (a program's run), eager or replayed
+    masks = collections.defaultdict(list)
+    attn_calls = collections.Counter()
+    per_run = models.dit_cfg.num_layers * SAMPLER_DEFAULTS["num_steps"]
     saved = (bench.stage, tdit.fused_joint_attention, tdac.fused_res_stack,
              quant.Int8Linear.__dict__["dot"])
 
     def counting_stage(stage_name, fn, *a):
         current[0] = stage_name
-        # each stage's first call at a key runs eagerly, where its tensors
-        # are recorded, and its later calls replay
-        fresh_programs()
+        # a stage's first call runs eagerly and captures its programs
+        # (request (x) dropped every program), its second replays them;
+        # the recorders below read both
         _reset(counters)
         try:
             return saved[0](stage_name, fn, *a)
@@ -2525,10 +2670,17 @@ def request_bench(models, counters, card: str) -> dict:
 
     def recording_attention(q, *a, **k):
         t = a[2].shape[1]
-        key = (q.shape[0], q.shape[1], t)
-        note(lambda: shapes[current[0]]["attn"].update([key]))
-        if not capturing():
-            masks[current[0]].setdefault(id(a[4]), (t, q.shape[1], a[4]))
+        key, mask = (q.shape[0], q.shape[1], t), a[4]
+
+        def record():
+            stage = current[0]
+            shapes[stage]["attn"].update([key])
+            attn_calls[stage] += 1
+            if attn_calls[stage] % per_run == 0:
+                # under a replay the mask is the graph's own buffer, which
+                # holds this replay's values until the next program runs
+                masks[stage].append((t, key[1], mask.clone()))
+        note(record)
         return saved[1](q, *a, **k)
 
     def recording_res_stack(x, weights, **k):
@@ -2542,15 +2694,33 @@ def request_bench(models, counters, card: str) -> dict:
         note(lambda: shapes[current[0]]["mm"].update([key]))
         return saved[3].__func__(x, w8, *a)
 
+    # the stream stage's calls: its warm-up runs the stream's programs
+    # eagerly and captures them (request (x) dropped every program), its
+    # timed call replays them
+    stream_once = stages.stream_once
+    streams = []
+
+    def recording_stream_once(m, spk, blocks, kw, mask=None, audio=None):
+        chunks = [] if audio is None else audio
+        misses = stream_misses()
+        out = stream_once(m, spk, blocks, kw, mask, audio=chunks)
+        streams.append(dict(misses=stream_misses() - misses,
+                            chunks=[np.array(c) for c in chunks],
+                            audio=np.concatenate(chunks, axis=-1),
+                            inputs=(m, spk, list(blocks), dict(kw), mask)))
+        return out
+
     bench.stage = counting_stage
     tdit.fused_joint_attention = recording_attention
     tdac.fused_res_stack = recording_res_stack
     quant.Int8Linear.dot = staticmethod(recording_dot)
+    stages.stream_once = recording_stream_once
     try:
         line = run_bench(bench, BENCH_Y_ARGS, models)
     finally:
         bench.stage, tdit.fused_joint_attention, tdac.fused_res_stack = saved[:3]
         quant.Int8Linear.dot = saved[3]
+        stages.stream_once = stream_once
     launches = dict.fromkeys(counters, 0)
     for got in per_stage.values():
         for k, v in got.items():
@@ -2579,7 +2749,7 @@ def request_bench(models, counters, card: str) -> dict:
     for stage_name, seen in masks.items():
         want_text = (text_stream if stage_name in ("stream", "serve")
                      else BENCH_TEXT_VALID)
-        for t, s, mask in seen.values():
+        for t, s, mask in seen:
             lat = BENCH_LAT if t == BENCH_STREAM_T else 0
             text = int(mask[0, lat:lat + 768].sum())
             if stage_name != "batch" and text != want_text:
@@ -2587,14 +2757,31 @@ def request_bench(models, counters, card: str) -> dict:
                                 f"valid, want {want_text}")
     for stage_name in ("stream", "serve"):
         valid = {(s, int(m[0, :BENCH_LAT].sum()))
-                 for t, s, m in masks[stage_name].values()
-                 if t == BENCH_STREAM_T}
+                 for t, s, m in masks[stage_name] if t == BENCH_STREAM_T}
         if valid != BENCH_STREAM_VALID:
             failures.append(f"{stage_name}: the streamed blocks' (S, valid "
                             f"latent columns) {sorted(valid)}")
+    # the 1240-latent stream at 40 steps: the timed call's replay bit for
+    # bit the warm-up's eager run; request (z) replays a second input set
+    replayed = (len(streams) == calls and streams[0]["misses"] > 0
+                and all(r["misses"] == 0 for r in streams[1:])
+                and all(np.array_equal(r["audio"], streams[0]["audio"])
+                        for r in streams[1:]))
+    if not replayed:
+        failures.append(
+            f"stream: programs captured per call "
+            f"{[r['misses'] for r in streams]}, replay bit for bit the eager "
+            f"run: {replayed}; each block's max-abs from the eager run's "
+            + str([[float(np.abs(a - b).max()) for a, b in
+                    zip(r["chunks"], streams[0]["chunks"])]
+                   for r in streams[1:]]))
     if failures:
         raise AssertionError(f"{name}: {failures}")
+    BENCH_STREAM.update(inputs=streams[0]["inputs"], audio=streams[0]["audio"])
     log(json.dumps(line))
+    log(f"  request y: the stream's warm-up ran eagerly and captured "
+        f"{streams[0]['misses']} programs; the timed call replayed them, "
+        f"bit for bit the eager run: {replayed}")
     log(f"  request {name}: launches by stage {per_stage}; stage sum "
         f"(prefill + sampler + decode) over the one-shot wall "
         f"{(line['prefill_ms'] + line['sampler_ms'] + line['decode_ms']) / (1e3 * 640 * models.dac_cfg.frame_length / models.dac_cfg.sample_rate / line['value']):.4f} "
@@ -2610,6 +2797,9 @@ def request_bench(models, counters, card: str) -> dict:
 # 768 bytes, the voice's latents), another text and seed
 Z_TEXT = "A second request at the same key reads another sentence aloud."
 Z_SEED = 101
+# request (y)'s 1240-latent stream: its inputs (models, speaker latents,
+# block sizes, sampler parameters, speaker mask) and its eager run's audio
+BENCH_STREAM = {}
 # (W8A8 DiT, int8 static K/V): bf16; kv_quant; request (d)'s int8 modes
 Z_MODES = {"bf16": (False, False), "kv8": (False, True),
            "w8a8_kv8": (True, True)}
@@ -2631,6 +2821,102 @@ def manifest_launches(manifest, n_layers: int, steps: int) -> dict:
     return _want(attn=attn, res=res, res_stream=res_stream)
 
 
+def stream_replays(models, req_b: dict, qdit, counted, failures: list,
+                   card: str) -> None:
+    """Request (z)'s streams, at the published 40 steps a block:
+
+      * request (y)'s 1240-latent stream (BENCH_STREAM), whose replay
+        request (y) held bit for bit against its eager run: a second input
+        set (Z_TEXT at Z_SEED) replays the programs request (y) captured
+        (no capture), then bit for bit its own eager run after every
+        program is dropped;
+      * request (g)'s W8A8 stream ([40, 80], the voice's latents): after
+        every program is dropped, the first input set's eager run captures
+        its programs, the same stream again replays them bit for bit, the
+        second input set replays them bit for bit its own eager run (after
+        the programs are dropped again).
+
+    A second input set catches a position or value baked into a graph.
+    Every run's launches exact (kernel A 24 x 40 a block, kernel C 8 per
+    attention under W8A8, kernel B's history form 3 a block); a first run
+    captures one later-block program per distinct later block size
+    (request (y)'s three 320-latent blocks one), a replay none.  Request
+    (e)'s stream is request (q)'s: its WAV replays (e)'s programs bit for
+    bit (e)'s eager chunks."""
+    import dataclasses
+    from echo_tts_torch import SAMPLER_DEFAULTS, stream_synthesize
+    from echo_tts_torch.sampler import blockwise as bw
+    from echo_tts_torch.utils import programs
+
+    per_block = models.dit_cfg.num_layers * SAMPLER_DEFAULTS["num_steps"]
+    dev = models.device
+    voice = (req_b["spk"].cpu().numpy(), req_b["smask"].cpu().numpy())
+    streams = {}
+    if BENCH_STREAM:
+        m_y, spk_y, blocks_y, kw_y, mask_y = BENCH_STREAM["inputs"]
+        streams["y"] = (m_y, blocks_y, kw_y, None,
+                        (Z_TEXT, Z_SEED, spk_y, mask_y))
+    else:
+        log("  request z: request (y) did not run; its stream is not checked")
+    streams["g_w8a8"] = (dataclasses.replace(models, dit=qdit), [40, 80], {},
+                         (TEXT, 5) + voice, (Z_TEXT, Z_SEED) + voice)
+    for name, (m, schedule, kw, first, second) in streams.items():
+        w8a8 = m.dit is qdit
+        want = _want(attn=per_block * len(schedule),
+                     int8=8 * per_block * len(schedule) if w8a8 else 0,
+                     res_stream=3 * len(schedule))
+
+        def run(inputs, what):
+            text, seed, lat, mask = inputs
+            return counted(lambda: np.concatenate(
+                [c.audio for c in stream_synthesize(
+                    m, text, chunk_sizes=schedule, seed=seed,
+                    speaker_latent=lat, speaker_mask=mask,
+                    sampler_params=kw)], axis=-1), want,
+                f"stream {name} {what}")
+
+        same, captures, eager_s, later = {}, [], None, None
+        if first is None:
+            # request (y)'s programs, captured by its warm-up
+            eager_a = BENCH_STREAM["audio"]
+        else:
+            fresh_programs()
+            n0, later0 = len(programs.CAPTURES), bw.BLOCK_PROGRAMS.misses
+            t0 = time.perf_counter()
+            eager_a = run(first, "eager")
+            eager_s = time.perf_counter() - t0
+            captures = programs.CAPTURES[n0:]
+            later = bw.BLOCK_PROGRAMS.misses - later0
+            same["replay"] = np.array_equal(run(first, "replay"), eager_a)
+        n1 = len(programs.CAPTURES)
+        t0 = time.perf_counter()
+        replay_b = run(second, "replay, 2nd set")
+        replay_s = time.perf_counter() - t0
+        recaptured = len(programs.CAPTURES) - n1
+        static, pool = programs.static_bytes(dev), programs.pool_bytes(dev)
+        fresh_programs()
+        later0 = bw.BLOCK_PROGRAMS.misses
+        eager_b = run(second, "eager, 2nd set")
+        if later is None:
+            later = bw.BLOCK_PROGRAMS.misses - later0
+        same.update(second_set=np.array_equal(replay_b, eager_b),
+                    sets_differ=not np.array_equal(eager_a, replay_b))
+        if (not all(same.values()) or recaptured
+                or later != len(set(schedule[1:]))):
+            failures.append(f"stream {name}: bit-equal {same}; captures on "
+                            f"replay {recaptured}; later-block programs "
+                            f"{later}, want {len(set(schedule[1:]))}")
+        log(f"  request z, stream {name} {schedule}, 40 steps: replay "
+            f"against the eager run, bit for bit: {same}"
+            + ("" if eager_s is None else
+               f"; first run {eager_s:.2f} s (eager and {len(captures)} "
+               f"captures, {sum(sec for _, sec in captures):.2f} s of "
+               f"capture: {[(n, round(sec, 3)) for n, sec in captures]})")
+            + f"; replay of the 2nd set {replay_s:.2f} s; later-block "
+            f"programs {later}; static inputs {static} bytes, pool {pool} "
+            f"bytes ({card})")
+
+
 def request_programs(models, req_b: dict, counters, card: str) -> dict:
     """Request (z): the compiled-program layer (utils/programs.py).  After
     dropping every program:
@@ -2645,6 +2931,10 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
         value baked into a graph; each call's launches exact (kernel A 960
         bf16 or int8-K/V, kernel C 7680 under W8A8); in bf16 the decode's
         replay bit for bit its eager run (kernel B 3 a call);
+      * first, while request (y)'s programs live, the streams of
+        stream_replays at 40 steps: requests (y) and (g) (W8A8), each
+        replayed bit for bit its eager run, and a second input set bit for
+        bit its own;
       * serve.handler.warmup_compile over the default manifest with
         batch_sizes=(8,) at full width: each entry's seconds and its
         programs' capture seconds, the shared pool's bytes and
@@ -2694,6 +2984,9 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
     y = (req_b["spk"], req_b["smask"], torch.from_numpy(ids).to(dev),
          torch.from_numpy(tmask).to(dev), Z_SEED)
     qdit = quantize_dit(models.dit)
+    stream_replays(models, req_b, qdit, counted, failures, card)
+    BENCH_STREAM.clear()
+    stamp("request z, streams")
     for mode, (w8a8, kv8) in Z_MODES.items():
         m = dataclasses.replace(models, dit=qdit) if w8a8 else models
         fn = functools.partial(pl.euler_sample_fn, kv_quant=kv8,
@@ -2727,6 +3020,7 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
         log(f"  request z, {mode}: replay against the eager run, bit for "
             f"bit: {same}")
     del qdit
+    stamp("request z, sampler modes")
 
     manifest = warmup_manifest((8,))
     want = manifest_launches(manifest, n_layers, steps)
@@ -2736,10 +3030,17 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
     passes = []
     for i in range(2):
         captures = len(programs.CAPTURES)
+        rss0, n_rss = host_rss(), len(CAPTURE_RSS)
         t0 = time.perf_counter()
         report = counted(lambda: th.warmup_compile(models, batch_sizes=(8,)),
                          want, f"warm-up pass {i + 1}")
         seconds = time.perf_counter() - t0
+        # the host memory each capture kept, and the pass's growth
+        grown = [(n, after - before) for n, before, after in
+                 CAPTURE_RSS[n_rss:]]
+        log(f"  request z, warm-up pass {i + 1}: host RSS {rss0} bytes "
+            f"before, {host_rss()} after; over each capture (cache, bytes) "
+            f"{grown}, {sum(d for _, d in grown)} bytes in all ({card})")
         # what the caching allocator keeps: the programs' pool, the models,
         # the caches; garbage and free blocks returned first
         gc.collect()
@@ -2748,6 +3049,7 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
         passes.append(dict(seconds=seconds, stats=programs.stats(),
                            reserved=torch.cuda.memory_reserved(dev),
                            pool=programs.pool_bytes(dev),
+                           static=programs.static_bytes(dev),
                            captured=len(programs.CAPTURES) - captures,
                            capture_s=sum(s for r in report
                                          for s in r["captures"])))
@@ -2756,7 +3058,8 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
             log(f"  request z, warm-up pass {i + 1}: {e['kind']} "
                 f"{ {k: v for k, v in e.items() if k != 'kind'} }: "
                 f"{r['seconds']:.2f} s, capture seconds {r['captures']}, "
-                f"pool {r['pool_bytes']} bytes")
+                f"pool {r['pool_bytes']} bytes, static inputs "
+                f"{r['static_bytes']} bytes")
     first, second = passes
     if (second["captured"] or first["captured"] == 0
             or any(second["stats"][c]["misses"] != first["stats"][c]["misses"]
@@ -2768,7 +3071,8 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
         f"({first['captured']} programs captured, {first['capture_s']:.2f} s "
         f"of capture), pass 2 {second['seconds']:.1f} s (captured "
         f"{second['captured']}); programs {second['stats']}; pool "
-        f"{first['pool']} bytes; memory_reserved {reserved0} before, "
+        f"{first['pool']} bytes, static inputs {first['static']} bytes; "
+        f"memory_reserved {reserved0} before, "
         f"{first['reserved']} after pass 1, {second['reserved']} after pass 2 "
         f"({card})")
     fresh_programs()
@@ -3253,14 +3557,18 @@ def phase_training(card: str) -> tuple:
 
     train = request_train(counters, card)
     add(train["launches"])
+    stamp("request i")
     models = pl.random_models()
     got, data_loss = request_data(models, counters)
     add(got)
+    stamp("request j")
     got, student, distill = request_distill(
         models, train_batch(models.dit_cfg, seed=62), counters, card)
     add(got)
+    stamp("request k")
     got, bundle = request_bundle(models, student, counters)
     add(got)
+    stamp("request l")
     del student
     _free()
     add(request_demo(models, counters))
@@ -3623,10 +3931,13 @@ def main(argv) -> int:
         got, trained = phase_training(card)
         for k, v in got.items():
             launches[k] += v
+        stamp("phase 3, training")
         got, scaled = phase_scale_out(card, req_b)
         for k, v in got.items():
             launches[k] += v
+        stamp("phase 3, scale-out")
     att, att8, att_bwd, rst, mm = phase_kernels()
+    stamp("phase 4")
     att_train = training_cases()
     att_shard, mm_partial = scale_out_cases()
     if kernels_only:
@@ -3691,7 +4002,7 @@ def main(argv) -> int:
                       if r["shape"].startswith(("GB=3 S=160 T=40 ",
                                                 "GB=1 S=160 T=40 "))},
             # request (y): the B = 8 pass at T = 928, the streamed blocks
-            # at T = 1238
+            # at T = 1248
             bench={r["shape"]: summary(r) for r in att
                    if r["shape"].startswith(("GB=24 S=640 T=928",
                                              "GB=8 S=640 T=928"))
@@ -3755,6 +4066,8 @@ def main(argv) -> int:
             wo=summary(mm_partial[0]), prepass_ms=mm_partial[1]["prepass_ms"]),
     ]
     from echo_tts_torch.utils import programs
+    log(f"programs: host RSS {host_rss()} bytes, grown "
+        f"{sum(b - a for _, a, b in CAPTURE_RSS)} bytes over the captures")
     log(f"programs: {len(programs.CAPTURES)} captured in "
         f"{sum(s for _, s in programs.CAPTURES):.1f} s "
         f"({ {c.name: (c.misses, c.hits) for c in programs.caches()} } "

@@ -44,7 +44,9 @@ counterpart: a synchronise ends the card's work.  As bench.py's stages
 are jitted programs, the sampler, the codec and the stages here are
 captured programs (utils/programs.py, a CUDA graph per key and shape):
 a stage's untimed call runs eagerly and captures, the timed calls
-replay, and the streams run eagerly.  Each stage's output is checked (finite; the batch's eight
+replay; the streams too (the fused first block, the block programs of
+the stream's total bucket, the prefix's appends and the block decodes:
+serve/streaming.py).  Each stage's output is checked (finite; the batch's eight
 results; the stream's six blocks of 1240 x 2048 samples); a stage that
 fails exits 1 with its name and no line.
 

@@ -40,7 +40,7 @@ def few_step_plan(num_steps: int = FEW_STEPS):
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     args, models, lengths = stages.setup(ap, argv, models, blockwise=False)
     model, dt = models.dit, models.dtype
     inputs = stages.request_inputs(models.dit_cfg, 1, lengths,

@@ -16,9 +16,10 @@ serving layer does, and times the whole drain:
 The two forms run in turns (re-encode, carried, carried, re-encode, ...,
 after `--warmup` calls of each), so that a drift of the host's speed
 falls on both; "carried_over_reencode" is the median, and the range, of
-each turn's ratio of the two.  The port allocates the prefix buffer at
-the stream's own total; `bucket`
-is the stream-total bucket serving files the stream under.  The prefix
+each turn's ratio of the two.  The prefix buffer is padded to `bucket`,
+the stream-total bucket serving files the stream under (the blockwise
+sampler's total_len_bucket, as JAX's script passes it), so that the
+drains replay the block programs a served stream would.  The prefix
 work alone, without the step loop, is tools/stream_checks.prefix_checks,
 on the same set-up (stages.stream_setup).  One JSON line: {"metric":
 "incremental_latent_crossover", "totals": {TOTAL: {...}}}.
@@ -37,24 +38,28 @@ from ..sampler.blockwise import iter_blockwise_euler_cfg_independent_guidances
 from ..utils.profiling import wall_ms
 from . import stages
 
-def drain(models, inputs, schedule, sampler_kw, incremental: bool) -> None:
+def drain(models, inputs, schedule, sampler_kw, incremental: bool,
+          bucket) -> None:
     """The whole stream's blocks, each copied to the host."""
     gen = torch.Generator(device=models.device).manual_seed(0)
     for _, x_t, _ in iter_blockwise_euler_cfg_independent_guidances(
             models.dit, inputs["speaker_latent"], inputs["speaker_mask"],
             inputs["text_ids"], inputs["text_mask"], block_sizes=schedule,
             dtype=models.dtype, generator=gen,
-            incremental_latent=incremental, **sampler_kw):
+            incremental_latent=incremental, total_len_bucket=bucket,
+            **sampler_kw):
         x_t.cpu()
 
 
 FORMS = (("reencode", False), ("incremental", True))
 
 
-def drains_in_turns(models, inputs, schedule, sampler_kw, args) -> dict:
+def drains_in_turns(models, inputs, schedule, sampler_kw, args,
+                    bucket=None) -> dict:
     """{form: [host ms of each timed drain]}, the forms in turns."""
     def run(inc):
-        return lambda: drain(models, inputs, schedule, sampler_kw, inc)
+        return lambda: drain(models, inputs, schedule, sampler_kw, inc,
+                             bucket)
 
     for _ in range(args.warmup):
         for _, inc in FORMS:
@@ -67,7 +72,7 @@ def drains_in_turns(models, inputs, schedule, sampler_kw, args) -> dict:
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__, reps=2)
+    ap = stages.parser(__doc__, reps=2, steps=True)
     ap.add_argument("totals", nargs="*", type=int, default=[3840],
                     help="stream lengths in latents")
     args, models, lengths = stages.setup(ap, argv, models)
@@ -83,7 +88,7 @@ def main(argv=None, *, models=None) -> int:
                "bucket": setup["bucket"], "audio_s": audio_s, "ranges": {}}
         with torch.inference_mode():
             runs = drains_in_turns(models, inputs, setup["schedule"],
-                                   sampler_kw, args)
+                                   sampler_kw, args, setup["bucket"])
         for label, _ in FORMS:
             row[label + "_s"] = stages.median(runs[label]) / 1e3
             row[label + "_rtf"] = audio_s / row[label + "_s"]

@@ -41,7 +41,7 @@ TEXT = ("Tickets are available at the machines by the entrance, and the "
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     args, models, lengths = stages.setup(ap, argv, models, blockwise=False)
     qmodels = dataclasses.replace(models, dit=quantize_dit(models.dit))
     short = TINY_SHORT_SEQ if args.tiny else SHORT_SEQ

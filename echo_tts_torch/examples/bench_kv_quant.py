@@ -131,7 +131,7 @@ def w4a8_scan(device, shape, steps: int, args) -> dict:
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     ap.add_argument("--long-speaker", action="store_true",
                     help="the B = 8 row over the 6400-latent speaker bucket")
     ap.add_argument("--skip-b8", action="store_true")

@@ -76,7 +76,7 @@ def measure(models, lengths, bucket: int, audio: np.ndarray, args) -> dict:
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     args, models, lengths = stages.setup(ap, argv, models, blockwise=False)
     spl = models.dac_cfg.frame_length
     rng = np.random.default_rng(7)

@@ -26,7 +26,7 @@ from . import stages
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     args, models, lengths = stages.setup(ap, argv, models)
     blocks = stages.TINY_STREAM_BLOCKS if args.tiny else stages.STREAM_BLOCKS
     speaker = np.random.default_rng(1).standard_normal(

@@ -8,11 +8,12 @@ median of --reps (the host-only stages of 3 x --reps):
 
   host_text_ms     byte tokenize and pad to the 768 bucket (host)
   prefill_ms       the text and speaker K/V (sampler/blockwise.py
-                   prefill_text_speaker_kv)
+                   _prefill_core's program)
   sampler40_ms     the first block's 40 steps (sampler/blockwise.py
-                   denoise_block, no latent segment)
+                   _block_core's first-block program, no latent segment)
   decode40_ms      the first block's incremental decode from a fresh
-                   state (pipeline.ae_decode_block)
+                   state (pipeline.ae_decode_block, _decode_block_core's
+                   program)
   transfer_ms      its (1, 81920) fp32 audio to the host
   wav_write_ms     the WAV encode to a file (host)
   ttfa_stream_ms   the measured time to the first block's audio of
@@ -21,13 +22,13 @@ median of --reps (the host-only stages of 3 x --reps):
                    decode40 + transfer): what the stream's generator and
                    the gaps between the stages add
 
-  fused_first_ms   the prefill, the first block and its decode issued
-                   back to back, with one synchronise at the end (the
-                   audio's copy to the host).  The JAX script fuses them
-                   into one XLA program; the port runs eagerly and has no
-                   fused first-block program (serve/streaming.py), so this
-                   is the same work with no synchronise between stages:
-                   what the stages' own synchronises cost.
+  fused_first_ms   serve/streaming._fused_first_core: the prefill, the
+                   first block and its decode as one program, and the
+                   audio's copy to the host, which is what a fresh
+                   stream runs for its first chunk.
+
+Each stage's first call (the warm-up) runs eagerly and captures its
+program; the timed calls replay it (utils/programs.py).
 
 One JSON line.
 
@@ -47,16 +48,17 @@ import torch
 from ..config import MAX_TEXT_LENGTH, SAMPLER_DEFAULTS
 from ..pipeline import audio_io
 from ..pipeline.pipeline import ae_decode_block, ae_decode_stream_init
+from ..models.dac.streaming import MAX_POSITIONS
 from ..pipeline.text import get_text_input_ids_and_mask
-from ..sampler.blockwise import denoise_block, prefill_text_speaker_kv
-from ..serve.streaming import stream_synthesize
+from ..sampler import blockwise as bw
+from ..serve.streaming import _fused_first_core, stream_synthesize
 from . import stages
 
 FIRST_BLOCK, TINY_FIRST_BLOCK = 40, 4
 
 
 def main(argv=None, *, models=None) -> int:
-    ap = stages.parser(__doc__)
+    ap = stages.parser(__doc__, steps=True)
     args, models, lengths = stages.setup(ap, argv, models)
     model, dt, dev = models.dit, models.dtype, models.device
     cfg = models.dit_cfg
@@ -79,17 +81,19 @@ def main(argv=None, *, models=None) -> int:
     ids = torch.from_numpy(ids_np).to(dev)
     tmask = torch.from_numpy(tmask_np).to(dev)
 
-    @torch.inference_mode()
+    statics = bw.sampler_statics(dtype=dt, **p)
+
+    prefill_core = bw._prefill_core(model, dt)
+
     def prefill():
-        return prefill_text_speaker_kv(model, spk, ids, tmask, dt)
+        return prefill_core(ids, tmask, spk)
 
     noise = torch.randn((1, first, cfg.latent_size),
                         generator=torch.Generator().manual_seed(5)).to(dev)
+    first_core = bw._block_core(model, first, first, *statics, False, True)
 
-    @torch.inference_mode()
     def first_block(kv):
-        return denoise_block(model, noise, kv, tmask, spk_mask, start_pos=0,
-                             kv_latent=None, dtype=dt, **p)
+        return first_core(noise, kv[0], kv[1], tmask, spk_mask)
 
     def decode(x_t):
         return ae_decode_block(models, ae_decode_stream_init(models), x_t)[0]
@@ -120,8 +124,11 @@ def main(argv=None, *, models=None) -> int:
         stream_ttfa()
     ttfa_runs = [stream_ttfa() for _ in range(args.reps)]
 
+    fused_core = _fused_first_core(models, first, statics, MAX_POSITIONS)
+
     def fused():
-        return decode(first_block(prefill())).cpu()
+        return fused_core(ids, tmask, spk, spk_mask, noise,
+                          ae_decode_stream_init(models)["inner"])[0].cpu()
 
     _, fused_runs = stages.timed_stage(fused, args)
 

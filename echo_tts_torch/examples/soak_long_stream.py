@@ -19,12 +19,13 @@ of 640 random latents (160 patch columns).  It gates on:
     no reading and the gate is skipped;
   * the audio finite and exactly total x frame_length samples.
 
-Before the measured stream a warm pass streams the first 2 blocks only:
-the JAX script's warm pass compiles every XLA program the schedule
-reaches, while the port's streams run eagerly (their blockwise programs
-are not captured yet) and the kernels are built on first use, so two
-blocks (the latent-free first block and one with a prefix) reach every
-code path.
+Before the measured stream a warm pass streams the first 2 blocks only,
+at the measured stream's total bucket: the JAX script's warm pass
+compiles every XLA program the schedule reaches, and two blocks (the
+fused latent-free first block and one later block, with the prefix's
+append and the block decode) capture every program the measured stream
+replays (serve/streaming.py), whatever its length, since a later block's
+program serves every start.
 
 The report is one JSON line (also written to --report): the per-block
 table (block ms and elapsed seconds on the host clock, each block's wait
@@ -58,6 +59,7 @@ from ..device import card_name, resolve_device
 from ..ops.joint_attention import fused_joint_attention
 from ..ops.res_stack import fused_res_stack
 from ..pipeline.pipeline import random_models
+from ..serve.presets import pick_stream_total_bucket
 from ..serve.streaming import stream_synthesize
 
 BLOCK = 320
@@ -85,16 +87,19 @@ def launches() -> dict:
 
 
 def run_stream(models, schedule: List[int], speaker_latent: np.ndarray,
-               sampler_params: dict, table: Optional[list] = None
+               sampler_params: dict, table: Optional[list] = None,
+               total_bucket: Optional[int] = None
                ) -> Tuple[np.ndarray, float]:
-    """One stream on `schedule`; returns (its audio (1, samples), wall
+    """One stream on `schedule` (its prefix padded to `total_bucket`, by
+    default its own total's); returns (its audio (1, samples), wall
     seconds).  With `table`, appends one row a block."""
     dev = models.device
     pieces = []
     t0 = last = time.perf_counter()
     for chunk in stream_synthesize(
             models, TEXT, speaker_latent=speaker_latent,
-            chunk_sizes=schedule, seed=0, sampler_params=sampler_params):
+            chunk_sizes=schedule, seed=0, sampler_params=sampler_params,
+            total_bucket=total_bucket):
         now = time.perf_counter()
         if table is not None:
             mem = memory_allocated(dev)
@@ -175,7 +180,8 @@ def main(argv=None, *, models=None) -> int:
         (1, spk_len, cfg.latent_size))).astype(np.float32)
     dev = models.device
 
-    _, warm_s = run_stream(models, schedule[:WARM_BLOCKS], spk, p)
+    _, warm_s = run_stream(models, schedule[:WARM_BLOCKS], spk, p,
+                           total_bucket=pick_stream_total_bucket(total))
     mem_baseline = memory_allocated(dev)
     before = launches()
     table: list = []

@@ -78,9 +78,11 @@ BATCH_TEXTS = [
 ]
 
 
-def parser(doc: str, reps: Optional[int] = 3) -> argparse.ArgumentParser:
+def parser(doc: str, reps: Optional[int] = 3,
+           steps: bool = False) -> argparse.ArgumentParser:
     """The bench modules' arguments; reps=None leaves --reps unset, for a
-    module whose stages each have their own count."""
+    module whose stages each have their own count; steps=True adds
+    --steps, for a module whose sampler calls take lengths.steps."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: ECHO_DEVICE, else cuda)")
@@ -90,6 +92,12 @@ def parser(doc: str, reps: Optional[int] = 3) -> argparse.ArgumentParser:
                     help="timed calls of each stage (the median is reported)")
     ap.add_argument("--warmup", type=int, default=1,
                     help="untimed calls of each stage before them")
+    if steps:
+        ap.add_argument("--steps", type=int, default=None,
+                        help="Euler steps a sampler call (default: the "
+                             "published 40); fewer only shorten a check, "
+                             "and the times are then not the published "
+                             "request's")
     return ap
 
 
@@ -97,6 +105,8 @@ def parse(ap: argparse.ArgumentParser, argv) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if (args.reps is not None and args.reps < 1) or args.warmup < 0:
         ap.error("--reps must be >= 1 and --warmup >= 0")
+    if getattr(args, "steps", None) is not None and args.steps < 1:
+        ap.error("--steps must be >= 1")
     return args
 
 
@@ -125,7 +135,10 @@ def setup(ap: argparse.ArgumentParser, argv, models: Optional[EchoModels],
                                    dac_cfg=tiny_dac_config())
         else:
             models = random_models(dev, dit_cfg=base_dit_config(blockwise))
-    return args, models, TINY if args.tiny else FULL
+    lengths = TINY if args.tiny else FULL
+    if getattr(args, "steps", None) is not None:
+        lengths = dataclasses.replace(lengths, steps=args.steps)
+    return args, models, lengths
 
 
 def timed_stage(fn, args: argparse.Namespace, reps: Optional[int] = None):

@@ -8,7 +8,11 @@ when the causal context is carried from block to block:
 
   * window transformers: per-layer rolling K/V of the last (window - 1)
     positions, keys cached after RoPE at absolute positions, and the
-    absolute position (a host int) for the RoPE table and window mask;
+    absolute position (a 0-d int64 tensor on the device) for the RoPE
+    table and window mask, so that one captured block program
+    (pipeline._decode_block_core) serves every block of a stream; the
+    bound check is the caller's, on its host mirror
+    (pipeline.ae_decode_block, ae_encode_block);
   * every causal conv: its last (k_eff - stride) raw input frames, which
     replace the zero left pad (conv.py `history`); transpose convs their
     last (K / stride - 1) input frames;
@@ -48,6 +52,20 @@ MAX_POSITIONS = 8192
 MAX_ENC_POSITIONS = 32768
 
 
+def check_positions(pos: int, n: int, max_positions: int, what: str,
+                    hint: str = "") -> None:
+    """Raise ValueError unless a block of n positions from the host
+    position pos fits the RoPE table: pos + n <= max_positions.  The block
+    functions below read the position from the state on the device and
+    check nothing (a captured program cannot read it back, and a gather
+    past the table is a device-side assert that ends the CUDA context), so
+    every caller keeps a host mirror of the position and calls this before
+    each block (pipeline.ae_decode_block and ae_encode_block do)."""
+    if pos + n > max_positions:
+        raise ValueError(f"{what} position {pos} + block {n} exceeds the "
+                         f"RoPE bound {max_positions}{hint}")
+
+
 # ---------------------------------------------------------------------------
 # State initialization (streaming.py:51-96, 273-314)
 # ---------------------------------------------------------------------------
@@ -73,7 +91,8 @@ def _window_state(tcfg: AETransformerConfig, batch, dtype, device):
     shape = (tcfg.n_layer, batch, tcfg.window_size - 1, tcfg.n_head,
              tcfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.long, device=device)}
 
 
 def init_decode_state(cfg: DACConfig, batch: int = 1, dtype=torch.float32,
@@ -165,16 +184,16 @@ def transformer_decode_block(p: WindowLimitedTransformer,
     (streaming.py:150-206; one-shot twin: transformer.transformer_forward).
 
     st: {"k", "v": (L, B, W-1, H, Dh) post-RoPE rolling caches, "pos": the
-    absolute position of this block's first token}.  Returns (out, new
-    state)."""
+    absolute position of this block's first token, a 0-d int tensor}.
+    The RoPE rows pos + i are gathered from the max_positions table on
+    the device (streaming.py:162-165); pos + s <= max_positions is the
+    caller's check.  Returns (out, new state)."""
     b, s, d = x.shape
     h, hd, w = cfg.n_head, cfg.head_dim, cfg.window_size
     pos = st["pos"]
-    if pos + s > max_positions:
-        raise ValueError(f"position {pos} + block {s} exceeds the RoPE bound "
-                         f"{max_positions}")
     dev = x.device
-    table = rope_table(max_positions, hd, cfg.rope_base, dev)[pos:pos + s]
+    table = rope_table(max_positions, hd, cfg.rope_base, dev).index_select(
+        0, pos + torch.arange(s, device=dev))
     scale = 1.0 / (hd ** 0.5)
     # cache slot m holds position pos - (W-1) + m, block key n position
     # pos + n, query i position pos + i: visible iff the key position is
@@ -218,7 +237,9 @@ def decode_zq_block(dac: S1DAC, state: dict, z_q: torch.Tensor, *,
     1), new state): dac.decode_zq restricted to the new block, with all
     causal context from `state` (reference one-shot: autoencoder.py:486-496,
     1128-1132).  `max_positions` is the RoPE-table bound and must stay the
-    same over one stream's blocks."""
+    same over one stream's blocks.  The state's position is not checked
+    against it here: call through pipeline.ae_decode_block, or check a host
+    mirror with check_positions first."""
     cfg = dac.cfg
     q = dac.quantizer
     z, post = transformer_decode_block(
@@ -256,7 +277,10 @@ def encode_zq_block(dac: S1DAC, state: dict, audio: torch.Tensor, *,
     multiple being the caller's (reference one-shot:
     autoencoder.py:1080-1126).  Consecutive blocks reproduce the one-shot
     encode of the concatenated audio; the quantizers are per frame and
-    carry no state."""
+    carry no state.  The window transformers' positions (one per
+    hop_length samples) are not checked against `max_positions` here:
+    call through pipeline.ae_encode_block, or check a host mirror with
+    check_positions first."""
     cfg = dac.cfg
     if audio.shape[1] % cfg.frame_length != 0:
         raise ValueError(f"block length {audio.shape[1]} must be a multiple "

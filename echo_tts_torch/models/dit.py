@@ -350,8 +350,11 @@ def init_latent_inc_state(cfg: EchoDiTConfig, batch: int, max_patches: int,
                           dtype=torch.bfloat16, device="cuda") -> dict:
     """Zero state (dit.py:297-312): the patch encoder's per-layer K/V and
     the DiT latent-KV buffer, preallocated at max_patches; columns at and
-    past "pos" (a host int, the patches encoded so far) are zeros that
-    `latent_prefix_mask` hides.  Raises without CUDA unless device='cpu'."""
+    past "pos" (a 0-d int64 tensor on the device, the patches encoded so
+    far) are zeros that the latent prefix mask hides.  A device position
+    lets one captured append program serve every block of a stream; its
+    callers keep a host mirror for the bound check (sampler/blockwise.py).
+    Raises without CUDA unless device='cpu'."""
     device = resolve_device(device)
     enc = (cfg.speaker_num_layers, batch, max_patches, cfg.speaker_num_heads,
            cfg.speaker_head_dim)
@@ -360,7 +363,7 @@ def init_latent_inc_state(cfg: EchoDiTConfig, batch: int, max_patches: int,
             "enc_v": torch.zeros(enc, dtype=dtype, device=device),
             "lat_k": torch.zeros(lat, dtype=dtype, device=device),
             "lat_v": torch.zeros(lat, dtype=dtype, device=device),
-            "pos": 0}
+            "pos": torch.zeros((), dtype=torch.long, device=device)}
 
 
 def latent_kv_append_block(model: EchoDiT, state: dict,
@@ -369,11 +372,13 @@ def latent_kv_append_block(model: EchoDiT, state: dict,
     of the patch size, through the causal patch encoder with the carried
     K/V, and write the new DiT latent-KV columns (dit.py:315-398).
 
-    The state's buffers are written in place and the same dict is
-    returned, with "pos" advanced; "lat_k"/"lat_v" then stand for
-    get_kv_cache_latent's output (RoPE at idx * patch_size), valid for
-    columns < pos.  Encoder logits are fp32 with sdpa's 1/sqrt(dh) and
-    -inf off the causal visibility col <= pos + i."""
+    The state's buffers are written in place (index_copy_ at the device
+    positions pos + i) and the same dict is returned, with "pos" advanced;
+    "lat_k"/"lat_v" then stand for get_kv_cache_latent's output (RoPE at
+    idx * patch_size), valid for columns < pos.  Nothing is read back to
+    the host, so the call can be captured: pos + n_new <= max_patches is
+    the caller's check, on its host mirror.  Encoder logits are fp32 with
+    sdpa's 1/sqrt(dh) and -inf off the causal visibility col <= pos + i."""
     cfg = model.cfg
     p = model.latent_encoder
     b, s, d = latent_block.shape
@@ -384,19 +389,15 @@ def latent_kv_append_block(model: EchoDiT, state: dict,
     n_new = s // ps
     max_patches = state["enc_k"].shape[2]
     pos = state["pos"]
-    if pos + n_new > max_patches:
-        raise ValueError(f"{pos} + {n_new} patches exceed the state's "
-                         f"{max_patches}")
     eps = cfg.norm_eps
     h_enc, dh_enc = cfg.speaker_num_heads, cfg.speaker_head_dim
     dev = latent_block.device
-    new = slice(pos, pos + n_new)
+    new = pos + torch.arange(n_new, device=dev)        # the new columns
 
     x = p.in_proj(latent_block.reshape(b, n_new, d * ps)) / 6.0
-    freqs_new = freqs_tensor(dh_enc, max_patches, dev)[new]
+    freqs_new = freqs_tensor(dh_enc, max_patches, dev).index_select(0, new)
     col = torch.arange(max_patches, device=dev)[None, :]
-    row = pos + torch.arange(n_new, device=dev)[:, None]
-    hidden = ~(col <= row)[None, None]       # (1, 1, n_new, max_patches)
+    hidden = ~(col <= new[:, None])[None, None]  # (1, 1, n_new, max_patches)
     for li, blk in enumerate(p.blocks):
         a = blk.attention
         xn = rms_norm(x, blk.attention_norm.weight, eps)
@@ -407,8 +408,8 @@ def latent_kv_append_block(model: EchoDiT, state: dict,
         q = apply_rotary_emb(rms_norm(q, a.q_norm.weight, eps), freqs_new)
         k = apply_rotary_emb(rms_norm(k, a.k_norm.weight, eps), freqs_new)
         k_cache, v_cache = state["enc_k"][li], state["enc_v"][li]
-        k_cache[:, new] = k
-        v_cache[:, new] = v
+        k_cache.index_copy_(1, new, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, new, v.to(v_cache.dtype))
         logits = torch.einsum("bnhd,bmhd->bhnm", q.float(),
                               k_cache.to(q.dtype).float()) * (1.0 / dh_enc ** 0.5)
         w = torch.softmax(logits.masked_fill(hidden, float("-inf")),
@@ -423,17 +424,23 @@ def latent_kv_append_block(model: EchoDiT, state: dict,
     k_new, v_new = _stacked_kv(
         model, rms_norm(x, model.latent_norm.weight, eps), "latent")
     table = freqs_tensor(cfg.head_dim, max_patches * ps, dev)[::ps]
-    state["lat_k"][:, :, new] = apply_rotary_emb_half_heads(k_new, table[new])
-    state["lat_v"][:, :, new] = v_new
+    k_new = apply_rotary_emb_half_heads(k_new, table.index_select(0, new))
+    state["lat_k"].index_copy_(2, new, k_new.to(state["lat_k"].dtype))
+    state["lat_v"].index_copy_(2, new, v_new.to(state["lat_v"].dtype))
     state["pos"] = pos + n_new
     return state
 
 
-def latent_prefix_mask(batch_size: int, num_latents: int, start_pos: int,
-                       patch_size: int, *, device) -> torch.Tensor:
+def latent_prefix_mask(batch_size: int, num_latents: int,
+                       start_pos: Union[int, torch.Tensor], patch_size: int,
+                       *, device=None) -> torch.Tensor:
     """(B, num_latents) bool: position * patch_size < start_pos
-    (dit.py:401-417; reference: model.py:243-244).  start_pos is a host
-    int here, so one function serves both of the JAX package's variants."""
+    (dit.py:401-417; reference: model.py:243-244).  start_pos is a host int
+    or a 0-d int tensor on the device (a block program's start, so that one
+    captured program serves every block position), whose device the mask
+    takes; one function serves both of the JAX package's variants."""
+    if isinstance(start_pos, torch.Tensor):
+        device = start_pos.device
     positions = torch.arange(num_latents, device=device) * patch_size
     return (positions < start_pos).expand(batch_size, num_latents)
 
@@ -521,13 +528,24 @@ def _layer_col_scales(speaker_scale_by_layer: Optional[torch.Tensor],
                   * spk_cols.float())
 
 
-def _embed(model: EchoDiT, x: torch.Tensor, t: torch.Tensor, start_pos: int
+def _embed(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
+           start_pos: Union[int, torch.Tensor], max_pos: Optional[int] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(h, cond (GB, 1, 3M), freqs_q): the forward's input projection,
-    timestep conditioning and query RoPE table."""
+    timestep conditioning and query RoPE table, rows start_pos + i of the
+    max_pos table (default start_pos + S).  start_pos is a host int or a
+    0-d int tensor (a block program's traced start, dit.py:707-713), which
+    needs max_pos, the bound on start_pos + S."""
     cfg = model.cfg
     s = x.shape[1]
-    freqs_q = freqs_tensor(cfg.head_dim, start_pos + s, x.device)[start_pos:]
+    if max_pos is None:
+        if isinstance(start_pos, torch.Tensor):
+            raise ValueError("a tensor start_pos needs max_pos, the bound "
+                             "on start_pos + S")
+        max_pos = start_pos + s
+    rows = start_pos + torch.arange(s, device=x.device)
+    freqs_q = freqs_tensor(cfg.head_dim, max_pos, x.device).index_select(
+        0, rows)
     cond = get_timestep_embedding(t, cfg.timestep_embed_size)
     cond = model.cond_module(cond)[:, None]
     return model.in_proj(x), cond, freqs_q
@@ -577,7 +595,9 @@ def _remat_context_fn(mode: str):
 def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
                        kv_static: Union[KV, Dict[str, torch.Tensor]],
                        spk_cols: torch.Tensor,
-                       static_mask: torch.Tensor, *, start_pos: int = 0,
+                       static_mask: torch.Tensor, *,
+                       start_pos: Union[int, torch.Tensor] = 0,
+                       max_pos: Optional[int] = None,
                        speaker_scale_by_layer: Optional[torch.Tensor] = None,
                        remat: Union[bool, str] = False,
                        mesh=None) -> torch.Tensor:
@@ -586,7 +606,9 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
     x (GB, S, latent) and t (GB,) in the model dtype; kv_static the (k, v)
     pair from concat_static_kv, or its int8 form from
     ops.quant.quantize_kv_int8 (dit.py:716-756); static_mask (GB, T) bool;
-    speaker_scale_by_layer (L,) fp32.  remat checkpoints each layer for
+    speaker_scale_by_layer (L,) fp32; start_pos the block's first
+    position, a host int or a 0-d int tensor with max_pos (_embed).
+    remat checkpoints each layer for
     the backward (non-reentrant torch.utils.checkpoint): False/"none"
     saves everything; True/"full" saves nothing (every layer re-runs its
     forward, kernel A included); "dots" saves the weight products;
@@ -605,7 +627,7 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
     if mesh is not None:
         check_mesh(model, mesh,
                    (kv_static["k8"] if kv_q8 else kv_static[0]).shape[1])
-    h, cond, freqs_q = _embed(model, x, t, start_pos)
+    h, cond, freqs_q = _embed(model, x, t, start_pos, max_pos)
     col_scales = _layer_col_scales(speaker_scale_by_layer, spk_cols)
     layer = functools.partial(_dit_layer, cfg=model.cfg, mesh=mesh)
     for li, blk in enumerate(model.blocks):

@@ -8,7 +8,12 @@ variant, and the streaming (block) encode/decode entry points.
 The one-shot encode and decode run as captured programs, `_encode_core`
 and `_decode_core` (JAX pipeline.py:51-67, each a jitted program per codec
 configuration and shape): one per codec, PCA state and input shapes, on a
-card a CUDA graph (utils/programs.py).
+card a CUDA graph (utils/programs.py).  So do the streams' block decode
+and encode, `_decode_block_core` and `_encode_block_core` (JAX
+pipeline.py:92-103, 128-137): their inputs are the carried state's
+"inner" tree (every tensor of it, the window transformers' positions
+included) and the block, their outputs the block's result and the new
+tree; the position's host mirror stays outside, for the bound check.
 
 A `sample_fn` has the signature
     sample_fn(models, speaker_latent, speaker_mask, text_ids, text_mask,
@@ -75,6 +80,10 @@ def _dac_dtype(models: EchoModels) -> torch.dtype:
 # _encode_core and _decode_core.
 ENCODE_PROGRAMS = programs.ProgramCache("encode", 8)
 DECODE_PROGRAMS = programs.ProgramCache("decode", 8)
+# ... and on _decode_block_core and _encode_block_core, per codec, PCA
+# state and max_positions and per block shape
+DECODE_BLOCK_PROGRAMS = programs.ProgramCache("decode_block", 8)
+ENCODE_BLOCK_PROGRAMS = programs.ProgramCache("encode_block", 8)
 
 
 def _encode_body(dac, audio, *, pca: dict) -> torch.Tensor:
@@ -162,28 +171,74 @@ def ae_decode_stream_init(models: EchoModels, batch: int = 1) -> dict:
             "pos": 0}
 
 
+def _decode_block_body(dac, inner, latents, *, pca: dict, dtype,
+                       max_positions: int):
+    z_q = tdac.pca_unwhiten(latents, pca)
+    audio, inner = tstream.decode_zq_block(dac, inner, z_q.to(dtype),
+                                           max_positions=max_positions)
+    return audio[..., 0].float(), inner
+
+
+def _decode_block_core(models: EchoModels, max_positions: int):
+    """run(inner, latents (B, T_block, 80) fp32) -> ((B, T_block * 2048)
+    fp32 waveform, new inner), one DECODE_BLOCK_PROGRAMS program per block
+    shape (JAX pipeline.py:92-103); kernel B's history form runs inside
+    it, three stacks a block."""
+    pca, dtype = models.pca, _dac_dtype(models)
+
+    def run(inner, latents):
+        with torch.inference_mode():
+            return DECODE_BLOCK_PROGRAMS(
+                _codec_key(models) + (max_positions,), models.dac,
+                [inner, latents],
+                lambda: functools.partial(_decode_block_body, pca=pca,
+                                          dtype=dtype,
+                                          max_positions=max_positions))
+    return run
+
+
+def _encode_block_body(dac, inner, audio, *, pca: dict, max_positions: int):
+    z_q, inner = tstream.encode_zq_block(dac, inner, audio,
+                                         max_positions=max_positions)
+    return tdac.pca_whiten(z_q.float(), pca), inner
+
+
+def _encode_block_core(models: EchoModels, max_positions: int):
+    """run(inner, audio (B, L_block, 1) in the codec's dtype) -> (whitened
+    fp32 latents, new inner), one ENCODE_BLOCK_PROGRAMS program per block
+    shape (JAX pipeline.py:128-137)."""
+    pca = models.pca
+
+    def run(inner, audio):
+        with torch.inference_mode():
+            return ENCODE_BLOCK_PROGRAMS(
+                _codec_key(models) + (max_positions,), models.dac,
+                [inner, audio],
+                lambda: functools.partial(_encode_block_body, pca=pca,
+                                          max_positions=max_positions))
+    return run
+
+
 @torch.inference_mode()
 def ae_decode_block(models: EchoModels, state: dict, latents: torch.Tensor,
                     *, max_positions: Optional[int] = None):
     """Incremental ae_decode: (B, T_block, 80) latents -> ((B, T_block *
-    2048) fp32 waveform, new state).  Consecutive blocks reproduce
-    ae_decode of the concatenated latents (up to float reduction order)
-    at O(block) cost (pipeline.py:182-203).  `max_positions` (default
-    streaming.MAX_POSITIONS) bounds the RoPE positions of one stream;
-    going past it raises."""
+    2048) fp32 waveform, new state), through _decode_block_core.
+    Consecutive blocks reproduce ae_decode of the concatenated latents (up
+    to float reduction order) at O(block) cost (pipeline.py:182-203).
+    `max_positions` (default streaming.MAX_POSITIONS) bounds the RoPE
+    positions of one stream; going past it raises, checked on the host
+    mirror "pos" before the program runs."""
     if max_positions is None:
         max_positions = tstream.MAX_POSITIONS
     pos = state["pos"]
-    if pos + latents.shape[1] > max_positions:
-        raise ValueError(
-            f"decode stream position {pos} + block {latents.shape[1]} "
-            f"exceeds the RoPE bound {max_positions}; raise max_positions "
-            "(consistently across the stream) for longer audio")
-    z_q = tdac.pca_unwhiten(latents.to(models.device).float(), models.pca)
-    audio, inner = tstream.decode_zq_block(
-        models.dac, state["inner"], z_q.to(_dac_dtype(models)),
-        max_positions=max_positions)
-    return audio[..., 0].float(), {"inner": inner, "pos": pos + latents.shape[1]}
+    tstream.check_positions(
+        pos, latents.shape[1], max_positions, "decode stream",
+        "; raise max_positions (consistently across the stream) for longer "
+        "audio")
+    audio, inner = _decode_block_core(models, max_positions)(
+        state["inner"], latents.to(device=models.device, dtype=torch.float32))
+    return audio, {"inner": inner, "pos": pos + latents.shape[1]}
 
 
 def ae_encode_stream_init(models: EchoModels, batch: int = 1) -> dict:
@@ -200,10 +255,12 @@ def ae_encode_block(models: EchoModels, state: dict, audio: torch.Tensor,
                     *, max_positions: Optional[int] = None):
     """Incremental ae_encode: (B, L_block) or (B, L_block, 1) waveform,
     L_block a frame_length multiple -> ((B, L_block / 2048, 80) whitened
-    fp32 latents, new state) (pipeline.py:140-173).  Consecutive blocks
-    reproduce ae_encode of the concatenated audio.  The RoPE bound binds
-    at the encoder-tail transformer, one position per hop_length samples
-    (default streaming.MAX_ENC_POSITIONS); going past it raises."""
+    fp32 latents, new state) (pipeline.py:140-173), through
+    _encode_block_core.  Consecutive blocks reproduce ae_encode of the
+    concatenated audio.  The RoPE bound binds at the encoder-tail
+    transformer, one position per hop_length samples (default
+    streaming.MAX_ENC_POSITIONS); going past it raises, checked on the
+    host mirror."""
     if max_positions is None:
         max_positions = tstream.MAX_ENC_POSITIONS
     if audio.ndim == 2:
@@ -211,17 +268,14 @@ def ae_encode_block(models: EchoModels, state: dict, audio: torch.Tensor,
     cfg = models.dac_cfg
     frames = audio.shape[1] // cfg.hop_length
     pos = state["pos"]
-    if pos + frames > max_positions:
-        raise ValueError(
-            f"encode stream position {pos} + block {frames} frames "
-            f"exceeds the RoPE bound {max_positions} "
-            f"(~{max_positions * cfg.hop_length / cfg.sample_rate:.0f}"
-            " s of audio); raise max_positions consistently for longer")
+    tstream.check_positions(
+        pos, frames, max_positions, "encode stream",
+        f" frames (~{max_positions * cfg.hop_length / cfg.sample_rate:.0f}"
+        " s of audio); raise max_positions consistently for longer")
     audio = audio.to(device=models.device, dtype=_dac_dtype(models))
-    z_q, inner = tstream.encode_zq_block(models.dac, state["inner"], audio,
-                                         max_positions=max_positions)
-    return (tdac.pca_whiten(z_q.float(), models.pca),
-            {"inner": inner, "pos": pos + frames})
+    lat, inner = _encode_block_core(models, max_positions)(state["inner"],
+                                                           audio)
+    return lat, {"inner": inner, "pos": pos + frames}
 
 
 def get_speaker_latent_and_mask(

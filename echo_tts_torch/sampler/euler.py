@@ -144,12 +144,14 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                       mask_cfg: torch.Tensor, mask_plain: torch.Tensor, *,
                       cfg_scale_text: float, cfg_scale_speaker: float,
                       speaker_kv_max_layers: Optional[int], dtype,
-                      start_pos: int = 0, mesh=None,
+                      start_pos=0, max_pos: Optional[int] = None, mesh=None,
                       layer_scales: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The Euler loop over the step plan (reference loop:
-    inference.py:481-515); x_t (B, S, latent) float32.  `layer_scales`
-    (step_layer_scales) is made here when not given."""
+    inference.py:481-515); x_t (B, S, latent) float32.  start_pos is a
+    host int, or a 0-d int tensor with max_pos (a block program's start,
+    models/dit.py `_embed`).  `layer_scales` (step_layer_scales) is made
+    here when not given."""
     batch_size = x_t.shape[0]
     if layer_scales is None:
         layer_scales = step_layer_scales(plan, model.cfg.num_layers,
@@ -168,7 +170,8 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                             device=x_t.device).to(dtype)
             v = dit.dit_forward_static(
                 model, x3, t3, kv_static, spk_cols, mask_cfg,
-                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i],
+                start_pos=start_pos, max_pos=max_pos,
+                speaker_scale_by_layer=layer_scales[i],
                 mesh=mesh)
             v_c, v_ut, v_us = torch.chunk(v, 3, dim=0)
             v = v_c + s_text * (v_c - v_ut) + s_spk * (v_c - v_us)
@@ -177,7 +180,8 @@ def run_step_segments(model: dit.EchoDiT, x_t: torch.Tensor, plan: StepPlan,
                             device=x_t.device).to(dtype)
             v = dit.dit_forward_static(
                 model, x_t.to(dtype), t1, kv_static, spk_cols, mask_plain,
-                start_pos=start_pos, speaker_scale_by_layer=layer_scales[i],
+                start_pos=start_pos, max_pos=max_pos,
+                speaker_scale_by_layer=layer_scales[i],
                 mesh=mesh)
         v = c1 * v + c2 * x_t
         x_t = x_t + v * dt_i

@@ -29,9 +29,10 @@ With ECHO_COORD set, `main` first joins the world of one process per card
 (parallel/distributed.py) and each rank then serves on its own card, the
 share-nothing stance of the reference's workers.
 
-The sampler and the codec run as captured programs, one CUDA graph per
-static key and shape (utils/programs.py), and a shape's first request
-pays its eager run and its capture.  `warmup_compile` builds the kernels
+The sampler, the codec and the streams' blocks run as captured
+programs, one CUDA graph per static key and shape (utils/programs.py),
+and a shape's first request (a stream's first at a schedule and total
+bucket) pays its eager run and its capture.  `warmup_compile` builds the kernels
 and captures the programs of serve.presets.warmup_manifest before
 traffic arrives: `--warmup-compile` the high-traffic subset,
 `--warmup-full` the whole accepted surface, and with `--concurrent N` the
@@ -588,13 +589,15 @@ def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
     capture the 640-latent voice encode, then run every entry of
     serve.presets.warmup_manifest (or `manifest`) through the real request
     paths, so that the programs' keys are production's: one-shot entries
-    through sample_pipeline, stream entries through stream_synthesize,
-    batch entries through run_batch.  The manifest comes from the same
+    through sample_pipeline, stream entries through stream_synthesize at
+    the entry's total bucket (the fused first block, the later blocks of
+    the bucket, the prefix's appends and the block decodes), batch entries
+    through run_batch.  The manifest comes from the same
     constants request validation uses: by default the high-traffic subset,
     `full` the whole accepted surface, `batch_sizes` the micro-batch
     server's buckets.  Returns one record per step: the entry, its
-    seconds, the seconds of each program it captured and the shared
-    pool's bytes after it."""
+    seconds, the seconds of each program it captured, and the shared
+    pool's and the programs' static inputs' bytes after it."""
     from ..ops import cuda_build
     from ..pipeline.pipeline import get_speaker_latent_and_mask
     from ..utils import programs
@@ -620,11 +623,13 @@ def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
         captured = [round(s, 3) for _, s in programs.CAPTURES[n0:]]
         report.append({"entry": entry, "seconds": time.time() - t0,
                        "captures": captured,
-                       "pool_bytes": programs.pool_bytes(models.device)})
+                       "pool_bytes": programs.pool_bytes(models.device),
+                       "static_bytes": programs.static_bytes(models.device)})
         log.info("warmup %d/%d %s: %.1fs, %d programs captured %s, pool "
-                 "%d bytes", len(report), len(manifest) + 1, entry,
-                 report[-1]["seconds"], len(captured), captured,
-                 report[-1]["pool_bytes"])
+                 "%d bytes, static inputs %d bytes", len(report),
+                 len(manifest) + 1, entry, report[-1]["seconds"],
+                 len(captured), captured, report[-1]["pool_bytes"],
+                 report[-1]["static_bytes"])
 
     t_all = time.time()
     if models.device.type == "cuda":
@@ -652,7 +657,7 @@ def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
             step(e, lambda: [None for _ in stream_synthesize(
                 models, "Warmup utterance.", None,
                 chunk_sizes=e["chunk_sizes"], speaker_latent=lat,
-                sampler_params=parameters)])
+                sampler_params=parameters, total_bucket=e["total_bucket"])])
         elif e["kind"] == "batch":
             step(e, lambda: run_batch(
                 models, [BatchRequest(text="Warmup utterance.", seed=k,
@@ -769,7 +774,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--warmup-full", action="store_true",
                         help="capture the programs of the whole accepted "
                              "shape surface (every sequence x speaker "
-                             "bucket and stream), then serve")
+                             "bucket and stream), then serve; the captured "
+                             "graphs' host memory does not fit a 96 GiB "
+                             "host (README)")
     parser.add_argument("--allow-random-weights", action="store_true")
     parser.add_argument(
         "--concurrent", type=int,

@@ -16,10 +16,12 @@ stream-total buckets, and the micro-batch server's batch sizes
 (`batch_size_buckets`, `pick_batch_bucket`).  `warmup_manifest` lists
 every shape the serving surface accepts, from the same constants request
 validation uses, and serve/handler.warmup_compile captures them before
-traffic arrives.  The blockwise sampler's and the streaming path's
-programs (with the JAX package's `total_len_bucket`) come with the
-blockwise and streaming cores; until then their manifest entries run the
-streams eagerly.
+traffic arrives.  A stream entry captures its stream's programs at its
+total bucket, the prefix buffer's padded length (the blockwise sampler's
+`total_len_bucket`): the fused first block (one per first-block size),
+the later blocks (one per total bucket and block size, whatever the
+start), the carried prefix's appends and the block decodes
+(sampler/blockwise.py, serve/streaming.py).
 """
 from __future__ import annotations
 

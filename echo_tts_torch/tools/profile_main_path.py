@@ -32,6 +32,15 @@ streaming request (e): stream_synthesize on growing_schedule(640) with
 that voice, pre-encoded so that the stage is the prefill, the 40-latent
 first block's sampler and its first decode_zq_block, up to the chunk's
 audio on the host.  The same REPS unprofiled runs, then one profiled.
+Then a late block of the largest serving stream, 16 x 320 = 5120
+latents with the carried prefix (chip_smoke.py's request (r)): after a
+whole stream to warm up, a second stream's blocks 11 to 15 are the
+unprofiled runs and block 16 the profiled one, each the block's sampler
+(the iterator's next(), which appends the previous block to the prefix
+first), its decode_zq_block and its audio's copy to the host.  The
+stages go through the blockwise sampler's public iterator and the block
+decode only, so that a tree whose streams run eagerly (a `git archive`
+of one) profiles the same work with this file copied in.
 
 With --batch it profiles instead chip_smoke.py's micro-batched request
 (h): serve.batcher.run_batch over eight requests (four with the voice's
@@ -67,6 +76,7 @@ from ..device import card_name
 from ..ops.quant import quantize_dit
 from ..pipeline import audio_io, pipeline as pl
 from ..pipeline.text import get_text_input_ids_and_mask
+from ..sampler.blockwise import iter_blockwise_euler_cfg_independent_guidances
 from ..sampler.euler import sample_euler_cfg_independent_guidances
 from ..serve import batcher
 from ..serve.presets import growing_schedule, pick_speaker_bucket
@@ -160,7 +170,43 @@ def stream_stages(models, voice) -> list:
 
     first_chunk()                                           # warm-up
     _, walls = wall_ms(first_chunk, REPS)
-    return [_profiled("stream_first_chunk", first_chunk, walls)]
+    return [_profiled("stream_first_chunk", first_chunk, walls),
+            late_block_stage(models, lat, mask)]
+
+
+LATE_BLOCKS = [320] * 16    # the largest schedule serving accepts
+
+
+def late_block_stage(models, lat, mask) -> dict:
+    """A 320-latent block at the end of a 5120-latent stream (the module
+    docstring)."""
+    dev = models.device
+    ids, tmask = get_text_input_ids_and_mask([TEXT], MAX_TEXT_LENGTH)
+    inputs = [torch.from_numpy(a).to(dev) for a in (lat, mask, ids, tmask)]
+    params = dict(SAMPLER_DEFAULTS)
+    params.pop("sequence_length")
+
+    def stream():
+        blocks = iter_blockwise_euler_cfg_independent_guidances(
+            models.dit, *inputs, block_sizes=LATE_BLOCKS, dtype=models.dtype,
+            generator=torch.Generator(device=dev).manual_seed(7),
+            incremental_latent=True, **params)
+        state = [pl.ae_decode_stream_init(models)]
+
+        def block():
+            _, x_t, _ = next(blocks)
+            audio, state[0] = pl.ae_decode_block(models, state[0], x_t)
+            return audio.cpu()
+        return block
+
+    warm = stream()
+    for _ in LATE_BLOCKS:
+        warm()
+    block = stream()
+    for _ in range(len(LATE_BLOCKS) - REPS - 1):
+        block()
+    _, walls = wall_ms(block, REPS)
+    return _profiled("stream_block_320_at_5120", block, walls)
 
 
 def batch_stages(models, voice) -> list:

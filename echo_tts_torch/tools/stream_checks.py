@@ -31,10 +31,14 @@ stack), the streamed stages concatenated over blocks.
 Prefix.  The blockwise sampler's latent-prefix work for one stream on
 growing_schedule(total), for totals 640, 2560 and 4440 (the most a
 growing schedule reaches in MAX_STREAM_CHUNKS blocks), or at the totals
-`--prefix` names: re-encoding the whole prefix before every block after
+`--prefix` names, the buffer padded to the stream-total bucket as a
+stream's is: re-encoding the whole prefix before every block after
 the first (get_kv_cache_latent), or encoding each block once after it is
-sampled (latent_kv_append_block).  The DiT's step loop is the same either
-way, so this is the whole difference.  Host-clock wall time with a sync
+sampled (latent_kv_append_block), each as the captured program a stream
+replays: the append is the blockwise sampler's `_latent_inc_core`, the
+re-encode (which a stream runs inside its block program) a program of
+its own here.  The DiT's step loop is the same either way, so this is
+the whole difference.  Host-clock wall time with a sync
 around each call, median of REPS streams; and device time, the kernel
 intervals torch.profiler records (utils/profiling.timed).  The stream's set-up (schedule, prefix latents) is
 examples/stages.stream_setup, on which
@@ -61,7 +65,9 @@ from ..models.dac import dac as tdac
 from ..models.dac import streaming as tstream
 from ..models.plain import plain_kernels
 from ..pipeline import pipeline as pl
+from ..sampler import blockwise as bw
 from ..serve.presets import growing_schedule
+from ..utils import programs
 from ..utils.profiling import timed, wall_ms
 
 DECODE_TOTAL = 640
@@ -87,8 +93,9 @@ class _Stages:
 @torch.inference_mode()
 def decode_pair(dac, z_q, schedule, *, plain: bool):
     """z_q (1, T, latent_dim) decoded one-shot and streamed on `schedule`
-    (block sizes summing to T), with kernel B or, if `plain`, the residual
-    stacks' plain version (no launch).  Returns (one-shot audio, streamed
+    (block sizes summing to T, at most streaming.MAX_POSITIONS), with
+    kernel B or, if `plain`, the residual stacks' plain version (no
+    launch).  Returns (one-shot audio, streamed
     audio, one-shot stages, streamed stages), fp32, the stages being the
     post transformer's and each residual stack's output."""
     saved = (tdac._res_stack, tdac.transformer_forward,
@@ -104,6 +111,10 @@ def decode_pair(dac, z_q, schedule, *, plain: bool):
             state = tstream.init_decode_state(dac.cfg, 1, z_q.dtype, z_q.device)
             parts, start = [], 0
             for n in schedule:
+                # the state's position lies on the device: the bound is
+                # checked on the host's
+                tstream.check_positions(start, n, tstream.MAX_POSITIONS,
+                                        "decode")
                 a, state = tstream.decode_zq_block(dac, state,
                                                    z_q[:, start:start + n])
                 parts.append(a.float())
@@ -154,6 +165,10 @@ def decode_checks(models) -> dict:
         bf16_stream_vs_fp32=_compare(b_str, f_one, b_str_st, f_one_st))
 
 
+# the re-encode alone, as a program (a stream runs it inside its block's)
+REENCODE_PROGRAMS = programs.ProgramCache("prefix_reencode", 8)
+
+
 @torch.inference_mode()
 def prefix_checks(models, totals=PREFIX_TOTALS) -> list:
     """Per stream total, each form's prefix work for one stream: host wall
@@ -168,18 +183,26 @@ def prefix_checks(models, totals=PREFIX_TOTALS) -> list:
     for total in totals:
         setup = stream_setup(models, total)
         blocks, prefix = setup["schedule"], setup["prefix"]
+        # the buffer a stream holds: padded to its total bucket
+        length = setup["bucket"] or total
+        prefix = torch.nn.functional.pad(prefix, (0, 0, 0, length - total))
 
         def reencode():
             # before each block after the first, the whole zero-padded buffer
-            return sum(wall_ms(lambda: tdit.get_kv_cache_latent(model, prefix.to(dt)))[1][0]
+            return sum(wall_ms(lambda: REENCODE_PROGRAMS(
+                (cfg, dt), model, [prefix],
+                lambda: lambda m, x: tdit.get_kv_cache_latent(m, x.to(dt))))[1][0]
                        for _ in blocks[1:])
 
         def incremental():
-            state = tdit.init_latent_inc_state(cfg, 1, total // ps, dt, models.device)
+            state = tdit.init_latent_inc_state(cfg, 1, length // ps, dt,
+                                               models.device)
+            append = bw._latent_inc_core(model, dt)
             ms, start = 0.0, 0
             for n in blocks[:-1]:      # after each block but the last
-                ms += wall_ms(lambda: tdit.latent_kv_append_block(
-                    model, state, prefix[:, start:start + n].to(dt)))[1][0]
+                block = prefix[:, start:start + n]
+                state, runs = wall_ms(lambda: append(state, block))
+                ms += runs[0]
                 start += n
             return ms
 

@@ -21,10 +21,10 @@ A call, `cache(key, owner, inputs, make_body)`:
 
   * looks the program up by (key, the owner's identity, the structure and
     the shapes, dtypes and devices of the input tensors);
-  * on a miss, copies the inputs into static buffers of the program,
-    calls `make_body()` once (the per-key constants are built there) and
-    runs the body eagerly on the buffers.  That run is the warm-up
-    PyTorch asks for before a capture (the kernels are built, their
+  * on a miss, copies the inputs into static buffers ("Static inputs"
+    below), calls `make_body()` once (the per-key constants are built
+    there) and runs the body eagerly on the buffers.  That run is the
+    warm-up PyTorch asks for before a capture (the kernels are built, their
     shared-memory attributes set, every cached table the body reads is
     made) and its result answers the call.  Then, on a card, the body is
     captured with `torch.cuda.graph` into one memory pool that every
@@ -32,7 +32,9 @@ A call, `cache(key, owner, inputs, make_body)`:
   * on a hit, copies the inputs into the static buffers with `copy_`,
     replays the graph and returns a clone of the static output: the next
     replay overwrites the static output, and a caller may still hold it
-    (run_batch slices the sampler's latents for its decodes).
+    (run_batch slices the sampler's latents for its decodes).  The miss
+    run's result is cloned too, since a body may return a buffer it
+    wrote in place (the streams' carried state and prefix).
 
 On the CPU the same plumbing runs (static buffers, copy in, clone out),
 but the body is called directly, because there is nothing to capture; so
@@ -53,6 +55,19 @@ Two things the kernels' wrappers do on the host need the program's help:
     timestep tables, the residual stacks' kernel-layout weights), which
     live in caches that can drop them.  Their makers pass them through
     `hold`, and the program being built keeps a reference to each.
+
+Static inputs.  The programs of one cache share their static input
+buffers by (input slot, shape, dtype, device): every stream block
+program of a total bucket reads its text and speaker K/V (151 MB at the
+published width), its prefix and its carried latent K/V from the same
+buffers, not from a copy each.  Sharing is safe because every call copies
+all of its inputs into the buffers before its replay, under the lock
+below, and clones its output before the next call; a body that writes
+into one of its inputs (the latent prefix, the carried latent K/V) must
+return it, so that the clone carries the write out.  `static_bytes`
+reports what the buffers hold, beside `pool_bytes`.  A carried state is
+copied in and cloned out at each call (there is no counterpart of JAX's
+buffer donation): at the 5120-latent bucket about 344 MB each way.
 
 Concurrency.  All programs share one memory pool, so two of them must
 never replay at the same time: one replay's temporaries are another's.
@@ -153,21 +168,25 @@ def _flatten(tree, leaves: list):
                     f"lists and dicts; got {type(tree).__name__}")
 
 
-def _unflatten(spec, leaves):
-    it = iter(leaves)
+def _build(spec, it):
+    # a module-level recursion: a nested one would be a reference cycle
+    # (the function in its own closure, with the leaves' iterator) that
+    # keeps every leaf alive until the garbage collector runs, hundreds of
+    # MB a call for a stream's carried state
+    if spec is None:
+        return next(it)
+    if spec[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(spec[1], spec[2])}
+    items = [_build(c, it) for c in spec[1]]
+    if spec[0] == "list":
+        return items
+    if spec[0] == "tuple":
+        return tuple(items)
+    return spec[0](*items)                  # a named tuple
 
-    def build(s):
-        if s is None:
-            return next(it)
-        if s[0] == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        items = [build(c) for c in s[1]]
-        if s[0] == "list":
-            return items
-        if s[0] == "tuple":
-            return tuple(items)
-        return s[0](*items)                 # a named tuple
-    return build(spec)
+
+def _unflatten(spec, leaves):
+    return _build(spec, iter(leaves))
 
 
 def _clone_tree(tree):
@@ -263,6 +282,9 @@ class ProgramCache:
         self.hits = 0
         self._dead: List[int] = []          # ids of owners freed since
         self._watched: set = set()
+        # (slot, shape, dtype, device) -> the programs' shared static input
+        self._buffers: "weakref.WeakValueDictionary[tuple, torch.Tensor]" = (
+            weakref.WeakValueDictionary())
         _CACHES.append(self)
 
     def __len__(self) -> int:
@@ -276,6 +298,25 @@ class ProgramCache:
     def clear(self) -> None:
         with _LOCK:
             self.entries.clear()
+
+    def _static(self, slot: int, x: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        """The shared static buffer of input `slot` at x's shape, dtype and
+        device (made on first use), holding x's values."""
+        if x is None:
+            return None
+        key = (slot, tuple(x.shape), x.dtype, x.device)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = _static_copy(x)
+            self._buffers[key] = buf
+        else:
+            buf.copy_(x)
+        return buf
+
+    def buffers(self) -> List[torch.Tensor]:
+        """The live shared static input buffers."""
+        return list(self._buffers.values())
 
     def _owner_freed(self, owner_id: int) -> None:
         # runs inside the garbage collector, maybe during another
@@ -313,8 +354,8 @@ class ProgramCache:
             device = devices.pop()
             self.misses += 1
             prog = Program(owner, make_body(), spec,
-                           [_static_copy(x) for x in leaves])
-            out = prog._call_body(owner)            # the eager miss run
+                           [self._static(i, x) for i, x in enumerate(leaves)])
+            out = _clone_tree(prog._call_body(owner))   # the eager miss run
             if device.type == "cuda":
                 prog.capture(owner, device, self.name)
             self.entries[full] = prog
@@ -342,6 +383,18 @@ def stats() -> Dict[str, Dict[str, int]]:
     """{cache name: entries, misses, hits}."""
     return {c.name: {"entries": len(c), "misses": c.misses, "hits": c.hits}
             for c in _CACHES}
+
+
+def static_bytes(device) -> int:
+    """Bytes of the programs' shared static input buffers on `device`."""
+    device = torch.device(device)
+    seen = {}
+    for cache in _CACHES:
+        for buf in cache.buffers():
+            if buf.device.type == device.type and (
+                    device.index is None or buf.device.index == device.index):
+                seen[buf.data_ptr()] = buf.untyped_storage().nbytes()
+    return sum(seen.values())
 
 
 def pool_bytes(device) -> int:

@@ -318,3 +318,25 @@ def test_train_sweep_records_out_of_memory_and_goes_on(models, monkeypatch):
     with pytest.raises(RuntimeError, match="not a memory error"):
         bench_train_step.sweep(model, ["kernel"], ["attn"], 2, 16, lengths,
                                args)
+
+
+@pytest.mark.parametrize("argv,steps", [([], 2), (["--steps", "1"], 1)])
+def test_steps_option(models, argv, steps):
+    """--steps, where a module takes it, sets the sampler calls' Euler steps
+    (lengths.steps; default the config's: 2 at --tiny, 40 at full size),
+    refuses fewer than one, and is refused where a module does not take it;
+    a module runs with it and prints its line."""
+    ap = stages.parser("doc", steps=True)
+    _, _, lengths = stages.setup(ap, TINY_ARGS + argv, models)
+    assert lengths.steps == steps
+    with pytest.raises(SystemExit):
+        stages.setup(stages.parser("doc", steps=True),
+                     TINY_ARGS + ["--steps", "0"], models)
+    with pytest.raises(SystemExit):
+        stages.setup(stages.parser("doc"), TINY_ARGS + ["--steps", "1"],
+                     models)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert bench_long_reference.main(TINY_ARGS + argv, models=models) == 0
+    assert set(json.loads(buf.getvalue().strip().splitlines()[-1])) >= {
+        "metric", "buckets"}

@@ -130,7 +130,8 @@ def test_residual_unit_history_matches_jax(length):
 
 def test_transformer_decode_block_matches_jax(pair):
     """Two blocks through the quantizer's post transformer with a carried
-    rolling K/V against JAX's chain: outputs and the new state."""
+    rolling K/V against JAX's chain: outputs and the new state; a block
+    past the RoPE bound raises."""
     jm, port = pair
     tcfg = DAC_CFG.quantizer_transformer_config()
     jparams = jm.dac_params["quantizer"]["post"]
@@ -148,9 +149,12 @@ def test_transformer_decode_block_matches_jax(pair):
             np.testing.assert_allclose(st["k"].numpy(), np.asarray(jst["k"]),
                                        **TOL)
             assert st["pos"] == int(jst["pos"])
-        with pytest.raises(ValueError, match="RoPE bound"):
-            tstream.transformer_decode_block(
-                port.dac.quantizer.post_module, tcfg, st, _t(x[:, :4]), 14)
+    # the bound is checked on the host mirror of the position, before the
+    # block decode's program runs (the state's own position is a device
+    # tensor, which a captured program cannot read back)
+    with pytest.raises(ValueError, match="RoPE bound"):
+        tpl.ae_decode_block(port, {"inner": None, "pos": 12},
+                            torch.zeros((1, 4, 80)), max_positions=14)
 
 
 def test_transformer_decode_block_past_the_window(pair):
@@ -297,12 +301,15 @@ def test_stream_rope_bound_guards(pair):
 
 def _one_shot_latents(port, text, blocks, seed, speaker_latent=None, **kw):
     """The stream's latents, drawn again in the same generator order, with
-    the latent prefix in the form stream_synthesize takes."""
+    the latent prefix in the form stream_synthesize takes (carried on the
+    patch grid, the buffer padded to the stream-total bucket)."""
     ids, mask = get_text_input_ids_and_mask([text], max_length=MAX_TEXT_LENGTH)
     ps = DIT_CFG.speaker_patch_size
     cont = kw.get("continuation_latent")
     cont_len = 0 if cont is None else cont.shape[1]
     kw["incremental_latent"] = all(n % ps == 0 for n in [cont_len] + blocks[:-1])
+    kw["total_len_bucket"] = tpresets.pick_stream_total_bucket(
+        cont_len + sum(blocks))
     if speaker_latent is None:
         spk, smask = np.zeros((1, ps, 80), np.float32), np.zeros((1, ps), bool)
     else:
@@ -387,12 +394,21 @@ def test_stream_latent_prefix_rule(pair, monkeypatch, blocks, cont, want):
         seen.append(k["incremental_latent"])
         return iter(())
 
+    def fused(models, block_size, *a):
+        # a fresh stream's first block and decode, as zeros of their shapes
+        return lambda *inputs: (torch.zeros((1, block_size * SPL)),
+                                torch.zeros((1, block_size, 80)), None, None,
+                                inputs[-1])
+
     monkeypatch.setattr(tstreaming.bw,
                         "iter_blockwise_euler_cfg_independent_guidances", spy)
+    monkeypatch.setattr(tstreaming, "_fused_first_core", fused)
     cont_latent = np.zeros((1, cont, 80), np.float32) if cont else None
-    assert list(stream_synthesize(port, "x", chunk_sizes=blocks,
-                                  continuation_latent=cont_latent,
-                                  sampler_params=FAST)) == []
+    # a fresh stream yields its fused first chunk before the iterator's
+    chunks = list(stream_synthesize(port, "x", chunk_sizes=blocks,
+                                    continuation_latent=cont_latent,
+                                    sampler_params=FAST))
+    assert [c.index for c in chunks] == ([] if cont else [0])
     assert seen == [want]
 
 
