@@ -57,8 +57,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      (u) bench_int8_surfaces, the W8A8 request at seq 224 and one B = 8
      run_batch pass (kernel C at M = 15360 and 5120); (v)
      bench_train_step --sweep --remats attn from B = 2 to 16 or the
-     first out-of-memory point, 24 kernel A launches a step, its FLOP
-     count the JAX script's; (w) the other seven (long reference, few
+     first out-of-memory point (in the eager run or in the capture of
+     the value-and-grad step's program), a warm-up call (eager run and
+     capture) and a timed replay a point, 24 kernel A launches a step,
+     its FLOP count the JAX script's; (w) the other seven (long reference, few
      step, stream int8, TTFA breakdown, the latent prefix over a
      640-latent stream, the attention sweep, the int8 scans); (x)
      tools/validate_weights.main --no-reference --int8-report on those
@@ -94,18 +96,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      reserves no more (request_programs says each gate);
      then training at the published
      depth, seeded random weights: (i) train.loop.train at B = 2 on one
-     batch of the DataConfig shapes, t and eps fixed, three steps in each
-     remat mode (none, full, dots, dots_all, attn): kernel A's launches
-     per step exact (24, or 48 where the recompute re-runs the forward),
-     step ms, peak memory, each mode's gradients within rel-RMS 1e-2 of
-     "none"'s, the first-step losses within 1e-3, the loss lower at step 3;
-     kernel A's step against the plain version's and against the fp32
-     step at the bf16 step's timestep (within GRAD_FP32_RATIO of the
-     plain bf16 step's distance); one
-     step at blockwise=True (the latent encoder decayed without a
-     gradient); (j) write_shards on voice.wav (kernel B) feeding one step
-     through iter_batches; (k) two distill steps, 8 student steps of 5
-     teacher substeps, plain and quant-aware; (l) the student's bundle
+     batch of the DataConfig shapes, t and eps fixed, an EMA, three steps
+     in each remat mode (none, full, dots, dots_all, attn) through the
+     train step's program (one CUDA graph: loss, backward, clip, AdamW,
+     EMA): the first step its eager run with host syncs made errors
+     (torch.cuda.set_sync_debug_mode) and its capture (seconds, host RSS,
+     pool bytes), the next two replays, each step's kernel A launches
+     exact (24, or 48 where the recompute re-runs the forward), step ms,
+     peak memory, each mode's gradients within rel-RMS 1e-2 of "none"'s,
+     the first-step losses within 1e-3, the loss lower at step 3, and the
+     three steps' losses, parameters and EMA bit for bit those of the
+     step's body called eagerly; kernel A's step against the plain
+     version's and against the fp32 step at the bf16 step's timestep
+     (within GRAD_FP32_RATIO of the plain bf16 step's distance); AdamW's
+     capturable update against the CPU's form (reported); the device
+     clip on bf16 gradients bit for bit the host float's; one step at
+     blockwise=True (the latent encoder decayed without a gradient); (j)
+     write_shards on voice.wav (kernel B) feeding one step through
+     iter_batches; (k) three distill steps, 8 student steps of 5 teacher
+     substeps, plain and quant-aware, through the distill step's program
+     as (i)'s, bit for bit its body's; (l) the student's bundle
      saved and loaded through serve.models.load_models bit for bit, then a
      handler job with few_step_sampler_params(8) in bf16 and under
      ECHO_DIT_QUANT=int8; (m) one DemoSession.generate_audio, bit for bit
@@ -166,6 +176,7 @@ Imports nothing of JAX or of echo_tts_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -2274,12 +2285,20 @@ def request_int8_surfaces(models, counters, card: str) -> dict:
         lambda line: [] if line["audio_finite"] else ["audio not finite"])
 
 
+# (v)'s calls a point: the first runs eagerly and captures the step's
+# program (bench_train_step.GRAD_PROGRAMS), the timed one replays it
+TRAIN_SWEEP_REPS = ["--warmup", "1", "--reps", "1"]
+
+
 def request_train_sweep(models, counters, card: str) -> dict:
     """(v) bench_train_step --sweep --remats attn, B = 2 doubling to
-    TRAIN_SWEEP_MAX_B or the first out-of-memory point: kernel A 24
-    launches a step at every B that ran (exact over the request when no
-    point ran out of memory), the gradients' sum finite, the FLOP count
-    the JAX script's."""
+    TRAIN_SWEEP_MAX_B or the first out-of-memory point (in the eager run
+    or in the capture after it), one warm-up and one timed call a point:
+    kernel A 24 launches a step at every B that ran (exact over the
+    request when no point ran out of memory), the gradients' sum finite,
+    the FLOP count the JAX script's.  An out-of-memory point leaves the
+    context working: the sweep goes on to the next policy, and the
+    requests after it run."""
     from echo_tts_torch.examples import bench_train_step
     cfg = models.dit_cfg
     name = (f"v: bench_train_step --sweep, remat attn, B = 2 to "
@@ -2287,7 +2306,7 @@ def request_train_sweep(models, counters, card: str) -> dict:
     _reset(counters)
     line = run_bench(bench_train_step, ["--sweep", "--remats", "attn",
                                         "--b-max", str(TRAIN_SWEEP_MAX_B)]
-                     + BENCH_REPS, models)
+                     + TRAIN_SWEEP_REPS, models)
     got = _read(counters)
     ran = [r for r in line["sweep"] if not r.get("oom")]
     failures = []
@@ -2300,8 +2319,8 @@ def request_train_sweep(models, counters, card: str) -> dict:
                                  or not r["grad_sum_finite"]):
             failures.append(f"B = {r['batch']}: {r}")
     if not ran or (len(ran) == len(line["sweep"])
-                   and got != _want(attn=cfg.num_layers * len(ran))):
-        failures.append(f"launches {got} for {len(ran)} steps")
+                   and got != _want(attn=2 * cfg.num_layers * len(ran))):
+        failures.append(f"launches {got} for {len(ran)} points of two steps")
     if failures:
         raise AssertionError(f"{name}: {failures}")
     log(f"  request {name}: launches {got}; " + ", ".join(
@@ -3102,28 +3121,38 @@ TRAIN_LR = 1e-4           # make_optimizer's default
 GRAD_FP32_RATIO = 1.02
 
 
+# Request (i)'s EMA decay: the train programs update the EMA in place too
+TRAIN_EMA = 0.999
+
+
 class StepTimes:
     """Wraps a module's step-function factory (make_train_step,
     make_distill_step) so that each step it makes is timed on the host
-    clock between synchronises; `ms` collects the steps' times."""
+    clock between synchronises and its kernel A launches are counted:
+    `ms` and `launches` get one entry a step.  With eager=True each step
+    runs its body without the program (the step's `eager`)."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, eager: bool = False):
+        self.module, self.name, self.eager = module, name, eager
         self.make = getattr(module, name)
-        self.ms = []
+        self.ms, self.launches = [], []
 
     def __enter__(self):
         import torch
+        from echo_tts_torch.ops.joint_attention import fused_joint_attention
 
         def make(*a, **k):
             step = self.make(*a, **k)
+            run = step.eager if self.eager else step
 
             def timed_step(*sa, **sk):
                 torch.cuda.synchronize()
+                n0 = fused_joint_attention.launches
                 t0 = time.perf_counter()
-                out = step(*sa, **sk)
+                out = run(*sa, **sk)
                 torch.cuda.synchronize()
                 self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.launches.append(fused_joint_attention.launches - n0)
                 return out
             return timed_step
 
@@ -3135,42 +3164,117 @@ class StepTimes:
         return False
 
 
+@contextlib.contextmanager
+def no_sync_in_eager_runs():
+    """Every program's eager miss run, not its capture, under
+    torch.cuda.set_sync_debug_mode("error"): a host sync inside a step's
+    body raises there."""
+    import torch
+    from echo_tts_torch.utils import programs
+    call = programs.Program._call_body
+
+    def strict(self, owner):
+        if capturing():
+            return call(self, owner)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, owner)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    programs.Program._call_body = strict
+    try:
+        yield
+    finally:
+        programs.Program._call_body = call
+
+
+def captures_since(n_captures: int, n_rss: int) -> list:
+    """[(cache name, capture s, host VmRSS growth bytes)] of the captures
+    after the first n_captures (programs.CAPTURES) and n_rss
+    (CAPTURE_RSS)."""
+    from echo_tts_torch.utils import programs
+    return [(name, sec, after - before) for (name, sec), (_, before, after)
+            in zip(programs.CAPTURES[n_captures:], CAPTURE_RSS[n_rss:])]
+
+
+def snapshot(state) -> list:
+    """Device copies of a train state's parameters and EMA."""
+    mods = [state.model] + ([] if state.ema is None else [state.ema])
+    return [p.detach().clone() for m in mods for p in m.parameters()]
+
+
+def replay_check(name: str, got: tuple, want: tuple) -> None:
+    """got, want: (snapshot, losses) of the same steps through the program
+    and through the body called eagerly, from the same weights and draws:
+    bit for bit equal, or raises with the largest parameter difference.
+    The program's first step is an eager run of the body itself, and on an
+    H100 its replays have matched the eager body bit for bit in every
+    remat mode and in both distill forms: a difference is a fault."""
+    import torch
+    if got[1] != want[1] or not all(torch.equal(x, y)
+                                    for x, y in zip(got[0], want[0])):
+        worst = max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(got[0], want[0]))
+        raise AssertionError(f"{name}: the program's steps differ from the "
+                             f"body's: losses {got[1]} / {want[1]}, "
+                             f"parameters max-abs {worst:.3e}")
+
+
 def _free():
+    """Collect garbage, drop the programs of freed owners (their graphs'
+    pool memory with them), return the cache to the card."""
     import gc
 
     import torch
+    from echo_tts_torch.utils import programs
     gc.collect()
+    programs.purge()
     torch.cuda.empty_cache()
 
 
 def request_train(counters, card: str) -> dict:
     """Request (i): `train` on the published 24-layer DiT (blockwise=False,
     as the JAX package trains it; seeded random bf16 weights) at B = 2 on
-    one batch of the DataConfig shapes, t and eps fixed across steps:
-    three steps in each remat mode, each from the same initial weights.
-    Per mode: one step's gradients (flow_matching_loss backward, as the
-    first update sees them) against "none"'s (rel-RMS 1e-2), kernel A's
-    launches per step (exact: L under "none", "attn", "dots_all"; 2 L
-    under "full" and "dots", whose recompute re-runs the forward), the
-    step ms (median of three, host clock between synchronises), the peak
-    memory (torch.cuda.max_memory_allocated, reset before the run, and
-    what was resident then); the loss finite and lower at step 3 than at
-    step 1, and the first-step losses of all modes within relative 1e-3.
-    Then the same step with joint_attention_plain in place of the kernel,
-    in bf16 and in fp32 at the bf16 step's timestep: kernel A's step no
-    farther from the fp32 one than GRAD_FP32_RATIO times the plain bf16
-    step; and one train step at blockwise=True, whose
-    latent encoder the loss does not reach: its gradients stay allocated
-    at zero and AdamW holds state for them (the decay optax applies)."""
+    one batch of the DataConfig shapes, t and eps fixed across steps, an
+    EMA at TRAIN_EMA: three steps in each remat mode, each from the same
+    initial weights, through the train step's program (train/step.py
+    TRAIN_PROGRAMS): step 1 its eager run, under
+    torch.cuda.set_sync_debug_mode("error") (no host sync in the body),
+    and its capture (seconds, host VmRSS growth, the pool's bytes after),
+    steps 2 and 3 replays.  Per mode: one step's gradients
+    (flow_matching_loss backward, as the first update sees them) against
+    "none"'s (rel-RMS 1e-2), kernel A's launches in each step (exact: L
+    under "none", "attn", "dots_all"; 2 L under "full" and "dots", whose
+    recompute re-runs the forward), the step ms (host clock between
+    synchronises; steps 2-3 replayed), the peak memory
+    (torch.cuda.max_memory_allocated, reset before the run, and what was
+    resident then); the loss finite and lower at step 3 than at step 1,
+    and the first-step losses of all modes within relative 1e-3.  The
+    replay check: the same three steps with the step's body called
+    eagerly, from the same weights and draws, their losses, parameters
+    and EMA bit for bit the program's (replay_check).  Then the same step
+    with joint_attention_plain in place of the kernel, in bf16 and in fp32
+    at the bf16 step's timestep: kernel A's step no farther from the fp32
+    one than GRAD_FP32_RATIO times the plain bf16 step; AdamW's capturable
+    update against the non-capturable one the CPU runs, on "none"'s
+    gradients (train_checks.adamw_form_gap, reported); the device clip on
+    bf16 gradients bit for bit the host-float clip it replaced; and one
+    train step at blockwise=True, whose latent encoder the loss does not
+    reach: its gradients stay allocated at zero and AdamW holds state for
+    them (the decay optax applies)."""
     import itertools
 
     import torch
     from echo_tts_torch.config import base_dit_config
     from echo_tts_torch.models import dit as tdit
-    from echo_tts_torch.tools.train_checks import (grad_rel_rms,
+    from echo_tts_torch.tools.train_checks import (adamw_form_gap,
+                                                   grad_rel_rms,
                                                    precision_gaps,
                                                    step_grads, train_draws)
     from echo_tts_torch.train import loop as tloop
+    from echo_tts_torch.train import step as tstep
+    from echo_tts_torch.utils import programs
 
     t0 = time.perf_counter()
     model0 = tdit.init_dit(base_dit_config(blockwise=False), seed=0)
@@ -3184,6 +3288,19 @@ def request_train(counters, card: str) -> dict:
 
     total = dict.fromkeys(counters, 0)
     modes, ref = {}, None
+    dev = torch.device("cuda")
+
+    def run(mode: str, eager: bool = False) -> tuple:
+        """Three train steps in `mode`: (StepTimes, the final state, the
+        losses)."""
+        losses = []
+        with StepTimes(tloop, "make_train_step", eager=eager) as times:
+            state = tloop.train(model0, itertools.repeat(batch), num_steps=3,
+                                lr=TRAIN_LR, fixed_noise=(t, eps), remat=mode,
+                                ema_decay=TRAIN_EMA,
+                                on_step=lambda i, v: losses.append(v))
+        return times, state, losses
+
     for mode in tdit.REMAT_MODES:
         _reset(counters)
         loss0, grads = step_grads(model0, batch, t, eps, remat=mode)
@@ -3201,47 +3318,88 @@ def request_train(counters, card: str) -> dict:
                 raise AssertionError(f"i {mode}: gradients rel-RMS {rel:.3e} "
                                      f"from none's > {REL_RMS_BOUND}")
         _free()
-        losses = []
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
-        with StepTimes(tloop, "make_train_step") as times:
-            state = tloop.train(model0, itertools.repeat(batch), num_steps=3,
-                                lr=TRAIN_LR, fixed_noise=(t, eps), remat=mode,
-                                on_step=lambda i, v: losses.append(v))
+        marks = len(programs.CAPTURES), len(CAPTURE_RSS)
+        with no_sync_in_eager_runs():
+            times, state, losses = run(mode)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        pool = programs.pool_bytes(dev)
+        captured = captures_since(*marks)
         got = _read(counters)
         for k, v in got.items():
             total[k] += v
-        if got != _want(attn=3 * per_step[mode]):
-            raise AssertionError(f"i {mode}: launches {got} over three steps, "
-                                 f"want {_want(attn=3 * per_step[mode])}")
+        if got != _want(attn=3 * per_step[mode]) or times.launches != [
+                per_step[mode]] * 3:
+            raise AssertionError(f"i {mode}: launches {got} over three steps "
+                                 f"({times.launches} a step), want "
+                                 f"{_want(attn=3 * per_step[mode])}")
+        if [c[0] for c in captured] != ["train_step"]:
+            raise AssertionError(f"i {mode}: captures {captured}, want one "
+                                 "train_step program")
         if not (np.isfinite(losses).all() and losses[2] < losses[0]):
             raise AssertionError(f"i {mode}: losses {losses}")
         if abs(losses[0] - loss0) > 1e-3 * abs(loss0):
             raise AssertionError(f"i {mode}: first step loss {losses[0]} "
                                  f"against its gradient step's {loss0}")
-        modes[mode] = dict(step_ms=float(np.median(times.ms)),
-                           steps_ms=times.ms, losses=losses,
-                           peak_gib=peak / 2**30,
-                           resident_gib=resident / 2**30,
-                           launches_per_step=got["joint_attention"] // 3,
-                           grad_rel_rms_vs_none=rel)
-        log(f"  request i, remat {mode}: step ms {times.ms[0]:.1f} / "
-            f"{times.ms[1]:.1f} / {times.ms[2]:.1f} (median "
-            f"{modes[mode]['step_ms']:.1f}); losses "
-            f"{[round(v, 5) for v in losses]}; peak {peak / 2**30:.2f} GiB "
-            f"({resident / 2**30:.2f} GiB resident before); kernel A "
-            f"launches per step {got['joint_attention'] // 3}; gradients "
-            f"rel-RMS {rel:.3e} from none's ({card})")
+        result = (snapshot(state), losses)
         del state
         _free()
+        eager_times, eager_state, eager_losses = run(mode, eager=True)
+        want = (snapshot(eager_state), eager_losses)
+        del eager_state
+        _free()
+        replay_check(f"i {mode}", result, want)
+        del result, want
+        _free()
+        modes[mode] = dict(step_ms=float(np.median(times.ms)),
+                           steps_ms=times.ms, eager_steps_ms=eager_times.ms,
+                           losses=losses, peak_gib=peak / 2**30,
+                           resident_gib=resident / 2**30,
+                           launches_per_step=times.launches[-1],
+                           grad_rel_rms_vs_none=rel,
+                           capture_s=captured[0][1],
+                           capture_rss_bytes=captured[0][2],
+                           pool_bytes=pool)
+        log(f"  request i, remat {mode}: step ms {times.ms[0]:.1f} (eager "
+            f"run and capture {captured[0][1]:.2f} s, host RSS "
+            f"+{captured[0][2] / 2**20:.1f} MiB, pool "
+            f"{pool / 2**30:.2f} GiB) / {times.ms[1]:.1f} / "
+            f"{times.ms[2]:.1f} replayed; eager "
+            f"{[round(v, 1) for v in eager_times.ms]}; losses "
+            f"{[round(v, 5) for v in losses]}; peak {peak / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB resident before); kernel A "
+            f"launches per step {times.launches}; gradients rel-RMS "
+            f"{rel:.3e} from none's; three steps bit for bit the eager "
+            f"body's ({card})")
     first = [m["losses"][0] for m in modes.values()]
     if max(first) - min(first) > 1e-3 * abs(first[0]):
         raise AssertionError(f"i: first-step losses {first} differ by more "
                              "than relative 1e-3")
 
+    # AdamW's update in the card's form (capturable, a tensor learning
+    # rate) against the CPU's (not capturable), from "none"'s gradients
+    adamw = adamw_form_gap(model0, ref, TRAIN_LR, 0.01)
+    log(f"  request i: one AdamW update, capturable against the CPU's "
+        f"form, at full width: update rel-RMS {adamw['update_rel_rms']:.3e}"
+        f", {100 * adamw['share_differing']:.3f} % of elements differ, "
+        f"max-abs {adamw['max_abs']:.3e} ({card})")
+    _free()
+    # the device clip on bf16 gradients past the clip, against the host
+    # float's clip it replaced (fp32 arithmetic, one rounding each)
+    clip_grads = [g[:256].clone() * 1e3 for g in ref[:64]]
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(clip_grads)).float())
+    host = [g.clone() for g in clip_grads]
+    torch._foreach_div_(host, float(norm))
+    tstep.clip_by_global_norm_(clip_grads, norm, 1.0)
+    if float(norm) < 1.0 or not all(torch.equal(a, b)
+                                    for a, b in zip(clip_grads, host)):
+        raise AssertionError("i: the device clip on bf16 gradients is not "
+                             "the host float's bit for bit")
+    del clip_grads, host
     # the same step with the plain version in place of kernel A, in bf16
     # and in fp32 (the model cast; the kernel takes bf16 only)
     _reset(counters)
@@ -3284,7 +3442,8 @@ def request_train(counters, card: str) -> dict:
         f"params) with zero gradients under AdamW's decay; launches {got}")
     del state, model_bw
     _free()
-    return dict(modes=modes, grad_rel_rms=gaps, launches=total)
+    return dict(modes=modes, grad_rel_rms=gaps, adamw_forms=adamw,
+                launches=total)
 
 
 def request_data(models, counters) -> tuple:
@@ -3341,53 +3500,92 @@ def request_data(models, counters) -> tuple:
 
 
 def request_distill(models, batch, counters, card: str) -> tuple:
-    """Request (k): two `distill` steps from the published 24-layer teacher
-    (models.dit, seeded random bf16 weights) into a student of the same
-    size, num_student_steps=8, substeps=5, plain and then quant-aware.
-    Per step kernel A launches 5 x 24 times for the teacher (no grad, 3B
-    rows) and 24 for the student (under grad); no kernel C (QAT runs
-    through qat_dot).  Prints the losses, the step ms, the peak memory.
-    Returns (launch counts, the quant-aware student, results)."""
+    """Request (k): three `distill` steps from the published 24-layer
+    teacher (models.dit, seeded random bf16 weights) into a student of the
+    same size, num_student_steps=8, substeps=5, plain and then
+    quant-aware, through the distill step's program (train/distill.py
+    DISTILL_PROGRAMS, owned by the student's state and the teacher): step
+    1 its eager run under torch.cuda.set_sync_debug_mode("error") and its
+    capture (seconds, host VmRSS growth, the pool's bytes after), steps 2
+    and 3 replays.  Per step kernel A launches 5 x 24 times for the
+    teacher (no grad, 3B rows) and 24 for the student (under grad); no
+    kernel C (QAT runs through qat_dot).  The replay check: the same
+    three steps with the body called eagerly, from the same weights and
+    draws, bit for bit (replay_check).  Prints the losses, the step ms,
+    the peak memory.  Returns (launch counts, the quant-aware student,
+    results)."""
     import itertools
 
     import torch
     from echo_tts_torch.train import distill as tdistill
+    from echo_tts_torch.utils import programs
 
     n_layers = models.dit_cfg.num_layers
     per_step = (5 + 1) * n_layers
     total = dict.fromkeys(counters, 0)
     results = {}
+
+    def run(quant_aware: bool, eager: bool = False) -> tuple:
+        losses = []
+        with StepTimes(tdistill, "make_distill_step", eager=eager) as times:
+            state = tdistill.distill(
+                models.dit, itertools.repeat(batch), num_steps=3,
+                num_student_steps=8, substeps=5, quant_aware=quant_aware,
+                on_step=lambda i, v: losses.append(v))
+        return times, state, losses
+
     for quant_aware in (False, True):
         student = None                      # the plain one goes first
         name = "quant-aware" if quant_aware else "plain"
-        losses = []
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
-        with StepTimes(tdistill, "make_distill_step") as times:
-            state = tdistill.distill(
-                models.dit, itertools.repeat(batch), num_steps=2,
-                num_student_steps=8, substeps=5, quant_aware=quant_aware,
-                on_step=lambda i, v: losses.append(v))
+        marks = len(programs.CAPTURES), len(CAPTURE_RSS)
+        with no_sync_in_eager_runs():
+            times, state, losses = run(quant_aware)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        pool = programs.pool_bytes(torch.device("cuda"))
+        captured = captures_since(*marks)
         got = _read(counters)
         for k, v in got.items():
             total[k] += v
-        if got != _want(attn=2 * per_step) or not np.isfinite(losses).all():
-            raise AssertionError(f"k {name}: launches {got}, want "
-                                 f"{_want(attn=2 * per_step)}; losses {losses}")
+        if (got != _want(attn=3 * per_step) or times.launches != [per_step] * 3
+                or not np.isfinite(losses).all()):
+            raise AssertionError(f"k {name}: launches {got} "
+                                 f"({times.launches} a step), want "
+                                 f"{_want(attn=3 * per_step)}; losses {losses}")
+        if [c[0] for c in captured] != ["distill_step"]:
+            raise AssertionError(f"k {name}: captures {captured}, want one "
+                                 "distill_step program")
+        result = (snapshot(state), losses)
+        del state
+        _free()
+        eager_times, eager_state, eager_losses = run(quant_aware, eager=True)
+        replay_check(f"k {name}", result,
+                     (snapshot(eager_state), eager_losses))
+        del result
         results[name] = dict(losses=losses, steps_ms=times.ms,
+                             eager_steps_ms=eager_times.ms,
                              peak_gib=peak / 2**30,
                              resident_gib=resident / 2**30,
-                             launches_per_step=per_step)
+                             launches_per_step=times.launches[-1],
+                             capture_s=captured[0][1],
+                             capture_rss_bytes=captured[0][2],
+                             pool_bytes=pool)
         log(f"  request k, {name}: losses {[round(v, 5) for v in losses]}; "
-            f"step ms {[round(v, 1) for v in times.ms]}; peak "
+            f"step ms {times.ms[0]:.1f} (eager run and capture "
+            f"{captured[0][1]:.2f} s, host RSS "
+            f"+{captured[0][2] / 2**20:.1f} MiB, pool {pool / 2**30:.2f} GiB)"
+            f" / {times.ms[1]:.1f} / {times.ms[2]:.1f} replayed; eager "
+            f"{[round(v, 1) for v in eager_times.ms]}; peak "
             f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} resident before);"
-            f" kernel A per step {per_step} (teacher 5 x {n_layers} at GB = 6"
-            f" without grad, student {n_layers} under grad) ({card})")
-        student = state.model
-        del state
+            f" kernel A per step {times.launches} (teacher 5 x {n_layers} at "
+            f"GB = 6 without grad, student {n_layers} under grad); three "
+            f"steps bit for bit the eager body's ({card})")
+        # the eager run's student, bit for bit the program's
+        student = eager_state.model
+        del eager_state
         student.zero_grad(set_to_none=True)
         student.requires_grad_(False)
         _free()
@@ -3546,6 +3744,7 @@ def phase_training(card: str) -> tuple:
 
     log("phase 3, training: train, data, distill, bundle, demo (full width "
         "and depth, seeded random weights)")
+    t0 = time.perf_counter()
     serve_models.clear_models()
     _free()
     counters = kernel_counters()
@@ -3574,9 +3773,10 @@ def phase_training(card: str) -> tuple:
     add(request_demo(models, counters))
     log(f"  training requests' peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since the "
-        f"last reset")
+        f"last reset; (i)-(m) {time.perf_counter() - t0:.1f} s")
     return launches, dict(train=train["modes"],
                           grad_rel_rms=train["grad_rel_rms"],
+                          adamw_forms=train["adamw_forms"],
                           data_loss=data_loss, distill=distill, bundle=bundle)
 
 

@@ -9,7 +9,11 @@ moments of the published size need their own memory (the whole step is
 train/step.py make_train_step, which chip_smoke.py request (i) times).
 bf16 parameters, fp32 loss; the gradients are taken with
 torch.autograd.grad and summed into a scalar, so that one set of
-gradients lives at a time.
+gradients lives at a time.  The step is one program of GRAD_PROGRAMS
+(utils/programs.py) per remat mode, attention policy and batch shape, as
+the JAX script jits it: a CUDA graph on a card, t and eps drawn before
+it; the first call at a point runs eagerly and captures, later ones
+replay, so a timed call comes after at least one --warmup.
 
 Single run (one JSON line):
 
@@ -25,10 +29,11 @@ Policy sweep (one JSON line, {"sweep": rows}):
         [--remats attn,full] [--attn kernel,plain] [--b-start 2] [--b-max 64]
 
   For each (remat, attention) policy B doubles until the card runs out
-  of memory: that point is recorded with step_ms None, the step's tensors
-  are freed (gc, torch.cuda.empty_cache, the peak counter reset) and the
-  next policy starts.  Only torch.cuda.OutOfMemoryError is caught.  The
-  largest B that ran is marked hbm_max_for_policy.
+  of memory, in the eager run or in the capture after it: that point is
+  recorded with step_ms None, the step's tensors and programs are freed
+  (gc, torch.cuda.empty_cache, the peak counter reset) and the next policy
+  starts.  Only torch.cuda.OutOfMemoryError is caught.  The largest B
+  that ran is marked hbm_max_for_policy.
 
 A row: step_ms (median of --reps), tokens_per_s (B x 640 latents a step),
 useful_tflops_rate (3 x the forward's useful FLOPs, useful_fwd_tflop, a
@@ -39,6 +44,7 @@ peak), launches_per_step (kernel A), peak_memory_mb
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import math
 import os
@@ -49,7 +55,8 @@ import torch
 from ..models import dit
 from ..models.plain import plain_kernels
 from ..ops.joint_attention import fused_joint_attention
-from ..train.step import flow_matching_loss
+from ..train.step import attention_route, draw_noise, flow_matching_loss
+from ..utils import programs
 from ..utils.profiling import PEAK_BF16_FLOPS
 from . import stages
 
@@ -95,12 +102,24 @@ def make_batch(cfg, b: int, lengths, device) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def grad_step(model, batch: dict, generator, remat: str):
-    """The loss and the sum of every gradient (a scalar each)."""
+# One program per (remat, attention route), model and batch shapes (the
+# JAX script's jitted value-and-grad step, examples/bench_train_step.py:89)
+GRAD_PROGRAMS = programs.ProgramCache("grad_step", 8)
+
+
+def _grad_body(model, batch: dict, t, eps, *, remat: str):
     params = [p for p in model.parameters() if p.requires_grad]
-    loss = flow_matching_loss(model, batch, generator, remat=remat)
+    loss = flow_matching_loss(model, batch, t=t, eps=eps, remat=remat)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), sum(g.float().sum() for g in grads if g is not None)
+
+
+def grad_step(model, batch: dict, generator, remat: str):
+    """The loss and the sum of every gradient (a scalar each): t and eps
+    drawn from generator, then one program of GRAD_PROGRAMS."""
+    t, eps = draw_noise(batch["latents"], generator)
+    return GRAD_PROGRAMS((remat, attention_route()), model, (batch, t, eps),
+                         lambda: functools.partial(_grad_body, remat=remat))
 
 
 def attention(attn: str):
@@ -112,6 +131,7 @@ def attention(attn: str):
 
 
 def free(device) -> None:
+    GRAD_PROGRAMS.clear()         # a point's graph and its pool memory
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()

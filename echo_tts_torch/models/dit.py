@@ -639,12 +639,17 @@ def dit_forward_static(model: EchoDiT, x: torch.Tensor, t: torch.Tensor,
             k_st, v_st, kv_scales = kv_static[0][li], kv_static[1][li], None
         args = (blk, h, cond, freqs_q, static_mask, col_scale, k_st, v_st,
                 kv_scales)
+        # No layer draws a random number, so the checkpoint need not save
+        # and restore the RNG state; reading the CUDA generator's state is
+        # refused while a train step's program is being captured
         if mode == "none":
             h = layer(*args)
         elif mode == "full":
-            h = checkpoint(layer, *args, use_reentrant=False)
+            h = checkpoint(layer, *args, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             h = checkpoint(layer, *args, use_reentrant=False,
+                           preserve_rng_state=False,
                            context_fn=_remat_context_fn(mode))
     return _out(model, h)
 

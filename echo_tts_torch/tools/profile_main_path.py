@@ -52,10 +52,17 @@ With --train it profiles instead one step of chip_smoke.py's request (i):
 train.step's train step under remat "attn" at B = 2 on a batch of the
 DataConfig shapes (640 latents, 768 text bytes, 640 speaker latents), on
 the published DiT at blockwise=False with seeded random bf16 weights, t
-and eps fixed.  Beside the top kernels it gives the device time under
-kernel A's forward op (echo_tts::joint_attention) and under its autograd
-backward (the plain recompute, _KernelWithPlainGradBackward), and under
-the optimizer update.
+and eps fixed: replayed (the step's program, TRAIN_PROGRAMS, captured by
+the warm-up), then the same body called eagerly on the same state
+(`eager`).  Beside the top kernels, the eager step gives the device time
+under kernel A's forward op (echo_tts::joint_attention) and under its
+autograd backward (the plain recompute, _KernelWithPlainGradBackward),
+and under the optimizer update; a replay runs none of those host ops.
+Then request (k)'s plain distill step (8 student steps of 5 teacher
+substeps, the same batch, i and eps fixed) on the same published DiT as
+teacher, replayed (DISTILL_PROGRAMS) and eager.  A tree before the train
+programs (a `git archive` of it) profiles its eager train step alone
+with the same command.
 """
 from __future__ import annotations
 
@@ -291,12 +298,53 @@ def train_stages() -> list:
     def train_step():
         return step(state, batch, t=t, eps=eps)
 
-    train_step()                                            # warm-up
+    def train_step_eager():
+        return step.eager(state, batch, t=t, eps=eps)
+
+    train_step()                            # warm-up: eager run and capture
     _, walls = wall_ms(train_step, REPS)
-    return [_profiled("train_step_attn_b2", train_step, walls, scopes=(
-        ("kernel A forward", "echo_tts::joint_attention"),
-        ("kernel A plain-recompute backward", "_KernelWithPlainGradBackward"),
-        ("optimizer update", "Optimizer.step")))]
+    _, eager_walls = wall_ms(train_step_eager, REPS)
+    # a replay runs no host op, so the scopes read only in the eager step
+    scopes = (("kernel A forward", "echo_tts::joint_attention"),
+              ("kernel A plain-recompute backward",
+               "_KernelWithPlainGradBackward"),
+              ("optimizer update", "Optimizer.step"))
+    stages = [_profiled("train_step_attn_b2", train_step, walls),
+              _profiled("train_step_attn_b2_eager", train_step_eager,
+                        eager_walls, scopes=scopes)]
+    del state
+    return stages + distill_stages(batch, eps)
+
+
+def distill_stages(batch: dict, eps) -> list:
+    """Request (k)'s plain distill step (8 student steps of 5 teacher
+    substeps) at the same batch, replayed and eager, i and eps fixed."""
+    from ..config import base_dit_config
+    from ..models.dit import init_dit
+    from ..train import distill as tdistill
+    from ..train import step as tstep
+
+    teacher = init_dit(base_dit_config(blockwise=False), seed=0)
+    tx = tstep.make_optimizer(lr=5e-5)
+    state = tstep.create_train_state(teacher, tx)
+    step = tdistill.make_distill_step(tx, num_student_steps=8, substeps=5)
+    i = torch.tensor([3, 6], device=eps.device)
+
+    def distill_step():
+        return step(state, teacher, batch, i=i, eps=eps)
+
+    def distill_step_eager():
+        return step.eager(state, teacher, batch, i=i, eps=eps)
+
+    distill_step()                          # warm-up: eager run and capture
+    _, walls = wall_ms(distill_step, REPS)
+    _, eager_walls = wall_ms(distill_step_eager, REPS)
+    return [_profiled("distill_step_b2", distill_step, walls),
+            _profiled("distill_step_b2_eager", distill_step_eager,
+                      eager_walls, scopes=(
+                          ("kernel A forward under grad (the student)",
+                           "echo_tts::joint_attention"),
+                          ("optimizer update", "Optimizer.step")))]
 
 
 def main(argv) -> int:

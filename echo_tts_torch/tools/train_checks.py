@@ -136,6 +136,49 @@ def precision_gaps(model, batch, t, eps, kernel_grads=None, *,
     return out
 
 
+def adamw_form_gap(model, grads, lr: float, weight_decay: float) -> dict:
+    """One AdamW update of a trainable copy of `model` from `grads` in two
+    forms: the one a card's train program runs (train.step.Optimizer.init:
+    capturable, a tensor learning rate, the foreach ops) and the one the
+    CPU runs (not capturable, the single-tensor loop; here with the float
+    learning rate, whose arithmetic the CPU's 0-d tensor keeps at fp32).
+    Returns the rel-RMS of the difference of the two updates over every
+    parameter (against the second's), the share of elements that differ
+    and the largest difference."""
+    tx = tstep.make_optimizer(lr=lr, weight_decay=weight_decay)
+    after = []
+    for capturable in (True, False):
+        trained = tdit.trainable_copy(model)
+        params = list(trained.parameters())
+        if capturable:
+            opt = tx.init(params)
+            for p, g in zip(params, grads):
+                p.grad.copy_(g)
+        else:
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.95),
+                                    eps=1e-8, weight_decay=weight_decay,
+                                    foreach=False)
+        opt.step()
+        del opt
+        after.append(trained.requires_grad_(False))
+        for p in params:
+            p.grad = None
+    num = den = 0.0
+    differ = total = 0
+    worst = 0.0
+    for p0, a, b in zip(model.parameters(), *(m.parameters() for m in after)):
+        d = a.float() - b.float()
+        num += float((d * d).sum())
+        den += float((b.float() - p0.float()).pow(2).sum())
+        differ += int((a != b).sum())
+        total += a.numel()
+        worst = max(worst, float(d.abs().max()))
+    return dict(update_rel_rms=math.sqrt(num / den),
+                share_differing=differ / total, max_abs=worst)
+
+
 def _ints(text: str):
     return [int(x) for x in text.split(",") if x]
 

@@ -25,10 +25,19 @@ few_step_sampler_params(N) per request; no shipped preset changes.
 Over a (data, model) mesh (`mesh=`) the teacher is sharded like the
 student, i and eps are drawn for the global batch and each rank keeps its
 rows, and the loss is the global mean, as in train/step.py.
+
+Without a mesh the step is one program of DISTILL_PROGRAMS, as the train
+step is one of train/step.py's TRAIN_PROGRAMS: the teacher's substeps,
+the student's forward and backward, the clip, AdamW and the EMA in one
+CUDA graph per static key and batch shapes on a card, i and eps drawn
+before it.  Its owners are the student's TrainState and the teacher: the
+graph reads the teacher's weights in place, and is dropped when either
+is freed.  Under a mesh the step runs eagerly.
 """
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -38,8 +47,13 @@ from ..models import dit
 from ..ops.quant import qat_tag_dit_params
 from ..sampler.euler import INIT_SCALE, make_cfg_branch_masks
 from ..parallel.mesh import shard_params
-from .step import (Optimizer, TrainState, apply_gradients, create_train_state,
-                   global_batch, make_optimizer, masked_mse, place_batch, rows)
+from ..utils import programs
+from .step import (Optimizer, TrainState, apply_gradients, attention_route,
+                   create_train_state, global_batch, make_optimizer,
+                   masked_mse, place_batch, rows)
+
+
+NUM_STUDENT_STEPS = 8      # distill_loss's default grid
 
 
 def few_step_sampler_params(num_steps: int = 8) -> dict:
@@ -59,6 +73,28 @@ def _static_kv(model: dit.EchoDiT, batch: Dict[str, torch.Tensor],
                                  mesh))
 
 
+def draw_noise(latents: torch.Tensor, generator: Optional[torch.Generator],
+               i: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None,
+               num_student_steps: int = NUM_STUDENT_STEPS,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """distill_loss's grid index i (B,) uniform over num_student_steps and
+    eps ~ N(0, 1) like the latents, each drawn from `generator` (i first)
+    unless given, on the latents' device; under a mesh the global
+    batch's."""
+    dev = latents.device
+    if (i is None or eps is None) and generator is None:
+        raise ValueError("pass a generator, or i and eps")
+    b = global_batch(mesh, latents.shape[0])
+    if i is None:
+        i = torch.randint(0, num_student_steps, (b,), generator=generator,
+                          device=dev)
+    if eps is None:
+        eps = torch.randn((b, *latents.shape[1:]), generator=generator,
+                          device=dev)
+    return i.to(dev), eps.to(dev)
+
+
 def distill_loss(
     student: dit.EchoDiT,
     teacher: dit.EchoDiT,
@@ -67,7 +103,7 @@ def distill_loss(
     *,
     i: Optional[torch.Tensor] = None,
     eps: Optional[torch.Tensor] = None,
-    num_student_steps: int = 8,
+    num_student_steps: int = NUM_STUDENT_STEPS,
     substeps: int = 5,
     cfg_scale_text: float = 3.0,
     cfg_scale_speaker: float = 8.0,
@@ -87,16 +123,9 @@ def distill_loss(
     rank's rows and i and eps the global batch's (train/step.py)."""
     dtype = next(student.parameters()).dtype
     x0 = batch["latents"].float()
-    b = global_batch(mesh, x0.shape[0])
     dev = x0.device
-    if (i is None or eps is None) and generator is None:
-        raise ValueError("pass a generator, or i and eps")
-    if i is None:
-        i = torch.randint(0, num_student_steps, (b,), generator=generator,
-                          device=dev)
-    if eps is None:
-        eps = torch.randn((b, *x0.shape[1:]), generator=generator, device=dev)
-    i, eps = rows(mesh, i.to(dev)), rows(mesh, eps.to(dev))
+    i, eps = draw_noise(x0, generator, i, eps, num_student_steps, mesh)
+    i, eps = rows(mesh, i), rows(mesh, eps)
     b = x0.shape[0]
 
     # the student grid: t_i = INIT_SCALE * (1 - i / N), one step -INIT_SCALE / N
@@ -145,28 +174,73 @@ def shard_teacher(teacher: dit.EchoDiT, mesh) -> dit.EchoDiT:
                                                      mesh)
 
 
+# One program per static key (distill_loss's keywords, EMA and its
+# decay, the clip, the attention route), (train state, teacher) and batch
+# shapes (JAX: make_distill_step's jitted distill_step, distill.py:164-202).
+DISTILL_PROGRAMS = programs.ProgramCache("distill_step", 8)
+
+
+def _distill_body(owners: Tuple[TrainState, dit.EchoDiT],
+                  batch: Dict[str, torch.Tensor], i: torch.Tensor,
+                  eps: torch.Tensor, lr: torch.Tensor, *, tx: Optimizer,
+                  ema_decay: float, distill_kw: dict,
+                  mesh=None) -> torch.Tensor:
+    """One update of the student's state in place; returns the loss."""
+    state, teacher = owners
+    state.optimizer.zero_grad(set_to_none=False)
+    loss = distill_loss(state.model, teacher, batch, i=i, eps=eps,
+                        mesh=mesh, **distill_kw)
+    loss.backward()
+    apply_gradients(state, tx, lr, ema_decay, mesh)
+    return loss.detach()
+
+
 def make_distill_step(tx: Optimizer, ema_decay: float = 0.999, mesh=None,
                       **distill_kw):
     """The distillation step (mirrors step.make_train_step):
     distill_step(state, teacher, batch, generator=None, *, i=None,
     eps=None) -> (state, loss), state updated in place; the frozen teacher
     rides as its own argument (under a mesh, sharded like the student:
-    shard_teacher) and the batch is the global one."""
+    shard_teacher) and the batch is the global one.  Without a mesh the
+    update is one program of DISTILL_PROGRAMS (module docstring);
+    `distill_step.eager` runs the same body without it."""
+    body = functools.partial(_distill_body, tx=tx, ema_decay=ema_decay,
+                             distill_kw=distill_kw)
+    n_steps = distill_kw.get("num_student_steps", NUM_STUDENT_STEPS)
+
+    def inputs(state: TrainState, batch: Dict, generator, i, eps) -> tuple:
+        device = next(state.model.parameters()).device
+        batch = place_batch(batch, device, mesh)
+        i, eps = draw_noise(batch["latents"], generator, i, eps, n_steps,
+                            mesh)
+        return batch, i, eps, tx.learning_rate(state.step, device)
+
+    def eager(state: TrainState, teacher: dit.EchoDiT, batch: Dict,
+              generator: Optional[torch.Generator] = None, *,
+              i: Optional[torch.Tensor] = None,
+              eps: Optional[torch.Tensor] = None
+              ) -> Tuple[TrainState, torch.Tensor]:
+        loss = body((state, teacher), *inputs(state, batch, generator, i, eps),
+                    mesh=mesh)
+        state.step += 1
+        return state, loss
 
     def distill_step(state: TrainState, teacher: dit.EchoDiT, batch: Dict,
                      generator: Optional[torch.Generator] = None, *,
                      i: Optional[torch.Tensor] = None,
                      eps: Optional[torch.Tensor] = None
                      ) -> Tuple[TrainState, torch.Tensor]:
-        student = state.model
-        batch = place_batch(batch, next(student.parameters()).device, mesh)
-        state.optimizer.zero_grad(set_to_none=False)
-        loss = distill_loss(student, teacher, batch, generator, i=i, eps=eps,
-                            mesh=mesh, **distill_kw)
-        loss.backward()
-        apply_gradients(state, tx, ema_decay, mesh)
-        return state, loss.detach()
+        if mesh is not None:
+            return eager(state, teacher, batch, generator, i=i, eps=eps)
+        key = (tuple(sorted(distill_kw.items())), state.ema is not None,
+               ema_decay, tx.grad_clip, attention_route())
+        loss = DISTILL_PROGRAMS(key, (state, teacher),
+                                inputs(state, batch, generator, i, eps),
+                                lambda: body)
+        state.step += 1
+        return state, loss
 
+    distill_step.eager = eager
     return distill_step
 
 

@@ -35,6 +35,32 @@ PyTorch terms:
 The Adam moments take the parameter dtype, as optax's do; the EMA is
 updated in fp32 and cast back to its own dtype.
 
+Without a mesh the step is one program of TRAIN_PROGRAMS
+(utils/programs.py), the counterpart of the JAX package's jitted
+train_step: the loss, its backward, the clip, AdamW and the EMA as one
+CUDA graph per static key and batch shapes on a card, its owner the
+TrainState, whose tensors it updates in place.  So nothing in the body
+waits on the host:
+  * the clip keeps the global norm a 0-d fp32 tensor and selects on the
+    card, as optax does: g / where(norm < clip, 1, norm) * where(norm <
+    clip, 1, clip), which is g itself below the clip.  The divisor is
+    broadcast as a dimensioned fp32 tensor, so that a bf16 gradient is
+    divided at fp32, as by the host float before (a 0-d fp32 tensor
+    would round it to bf16 first);
+  * the learning rate is an input: the schedule's float32 value at the
+    update count, a 0-d tensor copied into AdamW's tensor `lr`;
+  * on a card AdamW is capturable (its step counts and bias corrections
+    on the card).  Its arithmetic differs from the non-capturable form
+    that the CPU runs: it divides by device tensors, which rounds its
+    bias corrections to the parameters' dtype.  One update of the
+    published DiT in bf16 from the same gradients differs by rel-RMS
+    1.066e-2 of the update, in 0.737 % of the elements, at most 1.221e-4
+    (tools/train_checks.adamw_form_gap on an H100 80GB HBM3 at 700 W);
+  * t and eps are drawn by the caller's generator before the program, in
+    the order flow_matching_loss draws them, and passed in.
+The update count stays on the host.  Over a mesh the step runs eagerly
+(the mesh cores are not programs yet).
+
 A batch is a dict of arrays or tensors (`place_batch` moves it to the
 model's device):
   latents (B, S, 80) f32, text_ids (B, T) int, text_mask (B, T) bool,
@@ -45,7 +71,8 @@ model's device):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +81,7 @@ import torch.distributed as dist
 from ..models import dit
 from ..parallel.mesh import (all_reduce_fp32, batch_spec, data_group,
                              mesh_coords, model_group, sharded_params)
+from ..utils import programs
 
 
 def place_batch(batch: Dict, device: torch.device,
@@ -101,6 +129,25 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return share + (total - share.detach())
 
 
+def draw_noise(latents: torch.Tensor, generator: Optional[torch.Generator],
+               t: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None, mesh=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flow_matching_loss's t (B,) ~ U[0, 1) and eps ~ N(0, 1) like the
+    latents, each drawn from `generator` (t first) unless given, on the
+    latents' device; under a mesh the global batch's."""
+    dev = latents.device
+    if (t is None or eps is None) and generator is None:
+        raise ValueError("pass a generator, or t and eps")
+    b = global_batch(mesh, latents.shape[0])
+    if t is None:
+        t = torch.rand((b,), generator=generator, device=dev)
+    if eps is None:
+        eps = torch.randn((b, *latents.shape[1:]), generator=generator,
+                          device=dev)
+    return t.to(dev), eps.to(dev)
+
+
 def flow_matching_loss(model: dit.EchoDiT, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None, *,
                        t: Optional[torch.Tensor] = None,
@@ -118,15 +165,8 @@ def flow_matching_loss(model: dit.EchoDiT, batch: Dict[str, torch.Tensor],
     keeps its rows."""
     dtype = next(model.parameters()).dtype
     x0 = batch["latents"].float()
-    b = global_batch(mesh, x0.shape[0])
-    if (t is None or eps is None) and generator is None:
-        raise ValueError("pass a generator, or t and eps")
-    if t is None:
-        t = torch.rand((b,), generator=generator, device=x0.device)
-    if eps is None:
-        eps = torch.randn((b, *x0.shape[1:]), generator=generator,
-                          device=x0.device)
-    t, eps = rows(mesh, t.to(x0.device)).float(), rows(mesh, eps.to(x0.device))
+    t, eps = draw_noise(x0, generator, t, eps, mesh)
+    t, eps = rows(mesh, t).float(), rows(mesh, eps)
     x_t = t[:, None, None] * eps + (1.0 - t[:, None, None]) * x0
     v_target = eps - x0
 
@@ -168,6 +208,26 @@ def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int,
     return schedule
 
 
+def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor,
+                         max_norm: float) -> None:
+    """optax's clip_by_global_norm in place, selected on the card: each
+    gradient divided by where(norm < max_norm, 1, norm) and multiplied by
+    where(norm < max_norm, 1, max_norm), so that below the clip it is
+    exactly itself.  norm is a 0-d fp32 tensor; each gradient is divided
+    (and multiplied) at fp32 and rounded once to its dtype, as by a host
+    float: the scale is broadcast as a dimensioned fp32 tensor (a 0-d
+    fp32 tensor would be rounded to a bf16 gradient's dtype first)."""
+    below = norm < max_norm
+    denom = torch.where(below, 1.0, norm)
+    # at max_norm 1 the multiplier is 1 on both sides of the clip
+    mult = None if max_norm == 1.0 else torch.where(below, 1.0, max_norm)
+    for g in grads:
+        shape = (1,) * g.dim()
+        g.div_(denom.reshape(shape))
+        if mult is not None:
+            g.mul_(mult.reshape(shape))
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """AdamW (b1 0.9, b2 0.95, eps 1e-8) with optax's global-norm clipping
@@ -178,19 +238,31 @@ class Optimizer:
     weight_decay: float
     grad_clip: float
 
+    def learning_rate(self, count: int, device) -> torch.Tensor:
+        """Update `count`'s learning rate, the schedule's float32 value, as
+        a 0-d fp32 tensor on `device` (a fill, no host copy)."""
+        return torch.full((), self.schedule(count), dtype=torch.float32,
+                          device=device)
+
     def init(self, params: List[torch.nn.Parameter]) -> torch.optim.AdamW:
+        """AdamW over params with a tensor learning rate on their device;
+        capturable on a card (module docstring)."""
         params = list(params)
         for p in params:
             # every parameter is decayed, reached by the loss or not
             p.grad = torch.zeros_like(p)
-        return torch.optim.AdamW(params, lr=self.schedule(0),
+        device = params[0].device
+        return torch.optim.AdamW(params, lr=self.learning_rate(0, device),
                                  betas=(0.9, 0.95), eps=1e-8,
-                                 weight_decay=self.weight_decay)
+                                 weight_decay=self.weight_decay,
+                                 capturable=device.type == "cuda")
 
-    def update(self, opt: torch.optim.AdamW, count: int, mesh=None,
-               sharded: frozenset = frozenset()) -> float:
-        """Clip the gradients as optax does, set update `count`'s learning
-        rate and step; returns the global gradient norm.  Under a mesh,
+    def update(self, opt: torch.optim.AdamW, lr: Union[int, torch.Tensor],
+               mesh=None, sharded: frozenset = frozenset()) -> torch.Tensor:
+        """Clip the gradients as optax does, set the learning rate and
+        step; returns the global gradient norm, a 0-d fp32 tensor.  lr: the
+        update count, or its learning rate already a 0-d fp32 tensor on
+        the parameters' device (a program's input).  Under a mesh,
         `sharded` holds the ids of the tensor-parallel parameters, whose
         squares are summed over the model group."""
         params = [p for group in opt.param_groups for p in group["params"]]
@@ -198,19 +270,19 @@ class Optimizer:
         norms = torch.stack(torch._foreach_norm(grads)).float()
         group = None if mesh is None else model_group(mesh)
         if group is None:
-            norm = float(torch.linalg.vector_norm(norms))
+            norm = torch.linalg.vector_norm(norms)
         else:
             split = torch.tensor([id(p) in sharded for p in params],
                                  device=norms.device)
             sq_split = torch.where(split, norms, 0.0).square().sum()
             dist.all_reduce(sq_split, group=group)
             sq_rep = torch.where(split, 0.0, norms).square().sum()
-            norm = float((sq_split + sq_rep).sqrt())
-        if not norm < self.grad_clip:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.grad_clip)
+            norm = (sq_split + sq_rep).sqrt()
+        clip_by_global_norm_(grads, norm, self.grad_clip)
+        if not isinstance(lr, torch.Tensor):
+            lr = self.learning_rate(lr, norms.device)
         for group in opt.param_groups:
-            group["lr"] = self.schedule(count)
+            group["lr"].copy_(lr)
         opt.step()
         return norm
 
@@ -287,43 +359,95 @@ def reduce_gradients(model: torch.nn.Module, mesh) -> None:
             p.grad.copy_(all_reduce_fp32(p.grad, group))
 
 
-def apply_gradients(state: TrainState, tx: Optimizer,
+def apply_gradients(state: TrainState, tx: Optimizer, lr: torch.Tensor,
                     ema_decay: float, mesh=None) -> None:
-    """One optimizer update from the gradients on state.model, the step
-    count and the EMA; under a mesh, the gradients summed over "data"
-    first."""
+    """One optimizer update from the gradients on state.model at learning
+    rate lr (a 0-d fp32 tensor), and the EMA; under a mesh, the gradients
+    summed over "data" first.  The update count is the caller's."""
     if mesh is None:
-        tx.update(state.optimizer, state.step)
+        tx.update(state.optimizer, lr)
     else:
         reduce_gradients(state.model, mesh)
-        tx.update(state.optimizer, state.step, mesh,
-                  sharded_params(state.model))
-    state.step += 1
+        tx.update(state.optimizer, lr, mesh, sharded_params(state.model))
     if state.ema is not None:
         update_ema(state.ema, state.model, ema_decay)
+
+
+def attention_route():
+    """The joint attention the DiT's forward calls now: kernel A's wrapper,
+    or the plain version under models.plain.plain_kernels.  It is part of
+    a training program's key, since a graph replays what its capture
+    launched whatever the module binds later."""
+    return dit.fused_joint_attention
+
+
+# One program per static key (remat mode, EMA and its decay, the clip,
+# the attention route), train state and batch shapes (JAX:
+# make_train_step's jitted train_step, step.py:154-168).
+TRAIN_PROGRAMS = programs.ProgramCache("train_step", 16)
+
+
+def _train_body(state: TrainState, batch: Dict[str, torch.Tensor],
+                t: torch.Tensor, eps: torch.Tensor, lr: torch.Tensor, *,
+                tx: Optimizer, ema_decay: float, remat: str,
+                mesh=None) -> torch.Tensor:
+    """One update of `state` in place (gradients zeroed, the loss, its
+    backward, the clip, AdamW, the EMA); returns the loss."""
+    state.optimizer.zero_grad(set_to_none=False)
+    loss = flow_matching_loss(state.model, batch, t=t, eps=eps, remat=remat,
+                              mesh=mesh)
+    loss.backward()
+    apply_gradients(state, tx, lr, ema_decay, mesh)
+    return loss.detach()
 
 
 def make_train_step(tx: Optimizer, ema_decay: float = 0.999,
                     remat: str = "attn", mesh=None):
     """The train step: train_step(state, batch, generator=None, *, t=None,
     eps=None) -> (state, loss), state updated in place.  `remat` goes to
-    flow_matching_loss.  Under a mesh (state from create_train_state with
-    the same mesh) the batch, t and eps are the global batch's, of which
-    each rank takes its rows, and the loss is the global one."""
+    flow_matching_loss.  Without a mesh the update runs as one program of
+    TRAIN_PROGRAMS (module docstring): its first call at a key, state and
+    batch shapes runs eagerly and captures, later ones replay.  Under a
+    mesh (state from create_train_state with the same mesh) it runs
+    eagerly; the batch, t and eps are the global batch's, of which each
+    rank takes its rows, and the loss is the global one.  t and eps are
+    drawn from `generator` before the update unless given.
+    `train_step.eager` takes the same arguments and runs the same body
+    without the program."""
     dit.remat_mode(remat)
+    body = functools.partial(_train_body, tx=tx, ema_decay=ema_decay,
+                             remat=remat)
+
+    def inputs(state: TrainState, batch: Dict, generator, t, eps) -> tuple:
+        device = next(state.model.parameters()).device
+        batch = place_batch(batch, device, mesh)
+        t, eps = draw_noise(batch["latents"], generator, t, eps, mesh)
+        return batch, t, eps, tx.learning_rate(state.step, device)
+
+    def eager(state: TrainState, batch: Dict,
+              generator: Optional[torch.Generator] = None, *,
+              t: Optional[torch.Tensor] = None,
+              eps: Optional[torch.Tensor] = None
+              ) -> Tuple[TrainState, torch.Tensor]:
+        loss = body(state, *inputs(state, batch, generator, t, eps),
+                    mesh=mesh)
+        state.step += 1
+        return state, loss
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None, *,
                    t: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
-        model = state.model
-        batch = place_batch(batch, next(model.parameters()).device, mesh)
-        state.optimizer.zero_grad(set_to_none=False)
-        loss = flow_matching_loss(model, batch, generator, t=t, eps=eps,
-                                  remat=remat, mesh=mesh)
-        loss.backward()
-        apply_gradients(state, tx, ema_decay, mesh)
-        return state, loss.detach()
+        if mesh is not None:
+            return eager(state, batch, generator, t=t, eps=eps)
+        key = (remat, state.ema is not None, ema_decay, tx.grad_clip,
+               attention_route())
+        loss = TRAIN_PROGRAMS(key, state,
+                              inputs(state, batch, generator, t, eps),
+                              lambda: body)
+        state.step += 1
+        return state, loss
 
+    train_step.eager = eager
     return train_step

@@ -9,18 +9,23 @@ input shapes and dtypes, then replayed with one launch, so that the host
 issues one call where it issued thousands of kernel launches.
 
 A `ProgramCache` holds the programs of one kind (the Euler sampler, the
-codec's encode, its decode, the bench's stages), least recently used
-first, up to its bound.  Each program belongs to an owner, the module
-whose weights its graph reads (the DiT, the codec): the cache keeps only
-a weak reference to it, and a program whose owner has been freed is never
-replayed and is dropped at the next call, with its graph and its memory.
-The body receives the owner as its first argument and must hold no other
-reference to it.
+codec's encode, its decode, the bench's stages, the train and distill
+steps), least recently used first, up to its bound.  Each program
+belongs to an owner, the object whose tensors its graph reads (the DiT,
+the codec, a train state), or to a tuple of owners (a distill step reads
+its student's train state and its frozen teacher in place: copying the
+teacher's weights into static buffers would double them).  The cache
+keeps only weak references to them, and a program any of whose owners
+has been freed is never replayed and is dropped before the next program
+call (`purge`, which a caller may also run itself, so that a freed
+owner's graph and its pool memory go before other work), with its graph
+and its memory.  The body receives the owner (or the tuple) as its first
+argument and must hold no other reference to it.
 
 A call, `cache(key, owner, inputs, make_body)`:
 
-  * looks the program up by (key, the owner's identity, the structure and
-    the shapes, dtypes and devices of the input tensors);
+  * looks the program up by (key, the owners' identities, the structure
+    and the shapes, dtypes and devices of the input tensors);
   * on a miss, copies the inputs into static buffers ("Static inputs"
     below), calls `make_body()` once (the per-key constants are built
     there) and runs the body eagerly on the buffers.  That run is the
@@ -68,6 +73,20 @@ return it, so that the clone carries the write out.  `static_bytes`
 reports what the buffers hold, beside `pool_bytes`.  A carried state is
 copied in and cloned out at each call (there is no counterpart of JAX's
 buffer donation): at the 5120-latent bucket about 344 MB each way.
+
+Bodies that update their owner.  A train step's body runs the loss, its
+backward, the clip, AdamW and the EMA, and writes the owner's tensors in
+place: the parameters, their `.grad` (zeroed, not freed, and accumulated
+into in place), AdamW's moments and step counts (made by the eager miss
+run, before the capture) and its learning-rate tensor, and the EMA.  A
+graph holds the addresses it was captured with, so no tensor that a live
+train program reads may be re-allocated: whatever does so (loading an
+optimizer state dict, `.to()`, `requires_grad_`, setting `.grad` to
+None) must drop the program first (`ProgramCache.clear`).  A capture
+runs no kernel, so the miss applies one update (its eager run) and each
+replay one more.  The temporaries of such a body, the saved activations
+and the backward's buffers, come from the shared pool like every other
+program's: safe, since no two programs replay at once (below).
 
 Concurrency.  All programs share one memory pool, so two of them must
 never replay at the same time: one replay's temporaries are another's.
@@ -214,8 +233,8 @@ class Program:
     output (None on the CPU), the launches its capture recorded by
     counter, and what it holds."""
 
-    def __init__(self, owner, body: Callable, spec, static_in: list):
-        self.owner_ref = weakref.ref(owner)
+    def __init__(self, owners: tuple, body: Callable, spec, static_in: list):
+        self.owner_refs = [weakref.ref(o) for o in owners]
         self.body, self.spec, self.static_in = body, spec, static_in
         self.graph = None
         self.static_out = None
@@ -327,23 +346,25 @@ class ProgramCache:
         while self._dead:
             owner_id = self._dead.pop()
             self._watched.discard(owner_id)
-            for k in [k for k in self.entries if k[1] == owner_id]:
+            for k in [k for k in self.entries if owner_id in k[1]]:
                 del self.entries[k]
 
     def __call__(self, key: tuple, owner, inputs, make_body: Callable):
         """The program for (key, owner, inputs' shapes) run on inputs (a
         sequence of trees of tensors, all on one device); make_body() ->
         body, with body(owner, *inputs) -> a tree of tensors it made, is
-        called on a miss."""
+        called on a miss.  owner: one object, or a tuple of them."""
+        owners = owner if isinstance(owner, tuple) else (owner,)
         leaves: list = []
         spec = _flatten(tuple(inputs), leaves)
         shapes = tuple(None if x is None else (tuple(x.shape), x.dtype, x.device)
                        for x in leaves)
-        full = (key, id(owner), spec, shapes)
+        full = (key, tuple(map(id, owners)), spec, shapes)
         with _LOCK:
-            self._purge()
+            purge()
             prog = self.entries.get(full)
-            if prog is not None and prog.owner_ref() is owner:
+            if prog is not None and all(
+                    r() is o for r, o in zip(prog.owner_refs, owners)):
                 self.entries.move_to_end(full)
                 self.hits += 1
                 return prog.run(owner, leaves)
@@ -353,16 +374,17 @@ class ProgramCache:
                                  f"{sorted(map(str, devices))}")
             device = devices.pop()
             self.misses += 1
-            prog = Program(owner, make_body(), spec,
+            prog = Program(owners, make_body(), spec,
                            [self._static(i, x) for i, x in enumerate(leaves)])
             out = _clone_tree(prog._call_body(owner))   # the eager miss run
             if device.type == "cuda":
                 prog.capture(owner, device, self.name)
             self.entries[full] = prog
             self.entries.move_to_end(full)
-            if id(owner) not in self._watched:
-                self._watched.add(id(owner))
-                weakref.finalize(owner, self._owner_freed, id(owner))
+            for o in owners:
+                if id(o) not in self._watched:
+                    self._watched.add(id(o))
+                    weakref.finalize(o, self._owner_freed, id(o))
             while len(self.entries) > self.maxsize:
                 self.entries.popitem(last=False)
             return out
@@ -370,6 +392,17 @@ class ProgramCache:
 
 def caches() -> List[ProgramCache]:
     return list(_CACHES)
+
+
+def purge() -> None:
+    """Drop every program whose owner (or one of whose owners) has been
+    freed, in every cache, with its graph; its pool memory returns at the
+    next empty_cache.  Every program call runs it first; a caller that
+    frees an owner and then runs other work (a plain step, another
+    request) runs it itself."""
+    with _LOCK:
+        for cache in _CACHES:
+            cache._purge()
 
 
 def clear_all() -> None:
