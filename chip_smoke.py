@@ -121,12 +121,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      ECHO_DIT_QUANT=int8; (m) one DemoSession.generate_audio, bit for bit
      sample_pipeline's; then scale-out (echo_tts_torch/parallel/): (n)
      request (b) again at world size 1, through initialize_from_env (NCCL
-     on localhost), global_mesh(tp=1), shard_models and place_request, its
-     latents bit for bit (b)'s and 960 kernel A launches, then (b)'s inputs
-     through the fp32 sampler (plain attention); (o) two ranks on the one
-     card (torch.multiprocessing spawn, a gloo world: NCCL refuses two
-     ranks on one device), each building the published DiT and its own
-     unsharded references: SP tp=2 at 6400 latents, DP=2 on a B = 2
+     on localhost), global_mesh(tp=1), shard_models and place_request:
+     the mesh sampler's body without its program (`.eager`), then its
+     program's miss and a replay, each call's latents bit for bit (b)'s
+     and 960 kernel A launches, with their wall ms; a program whose body
+     runs NCCL's all_reduce and all_gather_into_tensor on the one-rank
+     world, replayed equal to its eager body; three steps of the mesh
+     train program at TRAIN_DEPTH layers bit for bit three of `.eager`
+     (loss, parameters, AdamW moments, EMA); then (b)'s inputs through the
+     fp32 sampler (plain attention); (o) two ranks on the one card
+     (torch.multiprocessing spawn, a gloo world: NCCL refuses two ranks on
+     one device, and no graph captures gloo's collectives): rank 0 first
+     checks that the mesh sampler's program refuses the gloo mesh on the
+     card, naming the backend; then each rank, through the mesh cores'
+     `.eager` forms, builds the published DiT and its own unsharded
+     references: SP tp=2 at 6400 latents, DP=2 on a B = 2
      request, TP=2 and W8A8 TP=2 forwards (kernel A at 8 heads; kernel C's
      given-scale instance in the row-parallel products), request (b)'s 40
      steps at TP=2 (held to the fp32 latents within TP_FP32_RATIO times
@@ -3803,7 +3812,7 @@ def phase_training(card: str) -> tuple:
 # itself is held bit for bit (rowpar_w8a8_exact), and kernel C's
 # given-scale instance against its plain version in phase 4.
 # (The ratios are parallel_checks.TP_FP32_RATIO and W8A8_FP32_RATIO.)
-TRAIN_DEPTH = 4           # request (o)'s train steps: DiT layers (encoders 2)
+TRAIN_DEPTH = 4           # (n), (o)'s train steps: DiT layers (encoders 2)
 
 
 def _free_port() -> int:
@@ -3819,11 +3828,14 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
     """Request (n): request (b) again through the scale-out layer at world
     size 1: initialize_from_env (NCCL, ECHO_COORD on localhost),
     global_mesh(tp=1), shard_models and place_request, then the sampler
-    with the mesh: its latents bit for bit (b)'s, 960 kernel A launches.
-    Then, on the same inputs, the fp32 sampler (plain attention) that
-    request (o) holds its TP=2 latents to, and the fp32 CFG forward its
-    TP=2 forward is measured against.  Returns (launches, the fp32
-    latents, the fp32 forward)."""
+    with the mesh three times: its body without the program (`.eager`),
+    the program's miss (its eager run and capture) and a replay, each
+    call's latents bit for bit (b)'s and 960 kernel A launches.  On the
+    same world: the NCCL collectives inside a graph (world1_collectives)
+    and the mesh train program (world1_train).  Then, on the same inputs,
+    the fp32 sampler (plain attention) that request (o) holds its TP=2
+    latents to, and the fp32 CFG forward its TP=2 forward is measured
+    against.  Returns (launches, the fp32 latents, the fp32 forward)."""
     import torch
     import torch.distributed as dist
     from echo_tts_torch import SAMPLER_DEFAULTS
@@ -3833,6 +3845,7 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
     from echo_tts_torch.sampler.euler import (
         sample_euler_cfg_independent_guidances as sample)
     from echo_tts_torch.tools import parallel_checks as pc
+    from echo_tts_torch.utils import programs
 
     models = pl.random_models()          # seed 0: request (b)'s weights
     dev = models.device
@@ -3845,6 +3858,8 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
            "ECHO_PROC_ID": "0"}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
+    n_attn = models.dit_cfg.num_layers * SAMPLER_DEFAULTS["num_steps"]
+    total = dict.fromkeys(counters, 0)
     try:
         if not pdist.initialize_from_env() or dist.get_backend() != "nccl":
             raise AssertionError("n: initialize_from_env did not join NCCL")
@@ -3852,32 +3867,51 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
         models = pinf.shard_models(models, mesh)
         placed = pinf.place_request(mesh, req_b["spk"], req_b["smask"],
                                     req_b["ids"], req_b["tmask"], noise)
-        _reset(counters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lat = sample(models.dit, *placed[:4], initial_noise=placed[4],
+        walls = {}
+        n_captures = len(programs.CAPTURES)
+        for form in ("eager", "miss", "replay"):
+            fn = sample.eager if form == "eager" else sample
+            _reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat = fn(models.dit, *placed[:4], initial_noise=placed[4],
                      dtype=models.dtype, mesh=mesh, **SAMPLER_DEFAULTS)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        got = _read(counters)
+            torch.cuda.synchronize()
+            walls[form] = (time.perf_counter() - t0) * 1e3
+            got = _read(counters)
+            if got != _want(attn=n_attn):
+                raise AssertionError(f"n {form}: launches {got}, want "
+                                     f"{_want(attn=n_attn)}")
+            if not torch.equal(lat, req_b["latents"]):
+                raise AssertionError(f"n {form}: the world-size-1 latents "
+                                     "differ from request (b)'s")
+            for k, v in got.items():
+                total[k] += v
+        captured = [c for c in programs.CAPTURES[n_captures:]
+                    if c[0] == "euler"]
+        if len(captured) != 1:
+            raise AssertionError(f"n: mesh sampler captures {captured}, want "
+                                 "one")
         world = dist.get_world_size()
+        log(f"  request n: NCCL world of {world}, global_mesh(tp=1), request "
+            f"(b) through shard_models/place_request and the mesh sampler: "
+            f"eager {walls['eager']:.1f} ms, program miss (eager run and "
+            f"capture, {captured[0][1]:.2f} s) {walls['miss']:.1f} ms, "
+            f"replay {walls['replay']:.1f} ms; each bit-equal to (b)'s "
+            f"latents, 960 kernel A launches each ({card})")
+        world1_collectives(mesh, models.dit, card)
+        _reset(counters)
+        world1_train(mesh, dev, card)
+        torch.cuda.synchronize()
+        for k, v in _read(counters).items():
+            total[k] += v
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        pdist.shutdown()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    n_attn = models.dit_cfg.num_layers * SAMPLER_DEFAULTS["num_steps"]
-    if got != _want(attn=n_attn):
-        raise AssertionError(f"n: launches {got}, want {_want(attn=n_attn)}")
-    if not torch.equal(lat, req_b["latents"]):
-        raise AssertionError("n: the world-size-1 latents differ from request "
-                             "(b)'s")
-    log(f"  request n: NCCL world of {world}, global_mesh(tp=1), request "
-        f"(b) through shard_models/place_request: latents bit-equal to (b)'s;"
-        f" launches {got}; sampler {wall:.1f} ms ({card})")
 
     # the fp32 run on (b)'s inputs (plain attention: kernel A takes bf16)
     _reset(counters)
@@ -3887,7 +3921,74 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
         raise AssertionError("n: the fp32 run launched a kernel")
     del models
     _free()
-    return got, lat32, fwd32
+    return total, lat32, fwd32
+
+
+def world1_collectives(mesh, owner, card: str) -> None:
+    """Request (n): a program over the NCCL mesh whose body runs
+    dist.all_reduce and dist.all_gather_into_tensor on the one-rank world
+    group (parallel_checks.collectives_check), the only NCCL collectives
+    inside a graph this one card can show: its miss and a replay on other
+    inputs, each equal to the body run eagerly on the same inputs."""
+    from echo_tts_torch.tools import parallel_checks as pc
+
+    rec = pc.collectives_check(mesh, owner)
+    if not (rec["miss_bit_equal"] and rec["replay_bit_equal"]):
+        raise AssertionError(f"n: the collectives' program differs from its "
+                             f"body: {rec}")
+    if next(owner.parameters()).is_cuda and rec["captures"] != 1:
+        raise AssertionError(f"n: collectives' program captures {rec}, "
+                             "want one")
+    log(f"  request n: all_reduce and all_gather_into_tensor over NCCL in "
+        f"a captured program (capture {rec['capture_s']:.4f} s): miss and "
+        f"replay equal to the body's ({card})")
+
+
+def world1_train(mesh, dev, card: str) -> None:
+    """Request (n): three train steps (remat "attn", an EMA) of the DiT
+    cut to TRAIN_DEPTH layers on the world-size-1 mesh, through the mesh
+    train program (its miss, two replays) and through `.eager` from an
+    identical state: after each step the loss, parameters, AdamW moments
+    and EMA bit for bit, TRAIN_DEPTH kernel A launches a step."""
+    import torch
+    from echo_tts_torch.models import dit as tdit
+    from echo_tts_torch.ops.joint_attention import fused_joint_attention
+    from echo_tts_torch.tools import parallel_checks as pc
+    from echo_tts_torch.tools.train_checks import train_draws
+    from echo_tts_torch.train import step as tstep
+
+    cfg = pc.cut_config(TRAIN_DEPTH)
+    model = tdit.init_dit(cfg, device=dev, seed=1)
+    batch, t, eps = train_draws(cfg, seed=0, device=dev)
+    tx = tstep.make_optimizer(lr=TRAIN_LR)
+    step = tstep.make_train_step(tx, ema_decay=TRAIN_EMA, mesh=mesh)
+    states = [tstep.create_train_state(model, tx, ema=True, mesh=mesh)
+              for _ in range(2)]
+    ms = {"program": [], "eager": []}
+    for i in range(3):
+        losses = []
+        for form, state in zip(ms, states):
+            run = step if form == "program" else step.eager
+            n0 = fused_joint_attention.launches
+            (_, loss), wall = pc.wall_ms(lambda: run(state, batch, t=t,
+                                                     eps=eps))
+            n = fused_joint_attention.launches - n0
+            if n != TRAIN_DEPTH:
+                raise AssertionError(f"n train {form} step {i}: kernel A "
+                                     f"launches {n}, want {TRAIN_DEPTH}")
+            ms[form].append(wall)
+            losses.append(loss)
+        if not (pc.same(losses[0], losses[1]) and pc.same(
+                *(pc.state_tensors(s) for s in states))):
+            raise AssertionError(f"n train step {i}: the mesh program's "
+                                 "state differs from the eager body's")
+    log(f"  request n: mesh train program at {TRAIN_DEPTH} layers, three "
+        f"steps bit for bit the eager body's (loss {float(losses[0]):.6f}; "
+        f"parameters, moments, EMA): program "
+        f"{[round(v, 1) for v in ms['program']]} ms (miss, replays), eager "
+        f"{[round(v, 1) for v in ms['eager']]} ms ({card})")
+    del states, model
+    _free()
 
 
 def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
@@ -3914,11 +4015,25 @@ def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
               flush=True)
 
     model = tdit.init_dit(base_dit_config(), device=dev, seed=0)
-    res["sp"] = pc.sp_check(model, tp2)
-    done("sp")
     req2 = pc.request_inputs(dev, batch=2)
+    if rank == 0:
+        # the program refuses the gloo mesh before it runs anything, so
+        # rank 1 waits in no collective
+        try:
+            pc.sample(model, req2, dp2)
+        except RuntimeError as exc:
+            res["refusal"] = str(exc)
+        else:
+            raise AssertionError("o: the mesh sampler's program ran over "
+                                 "gloo on the card")
+        if "'gloo'" not in res["refusal"]:
+            raise AssertionError(f"o: the refusal does not name the "
+                                 f"backend: {res['refusal']}")
+        done("refusal")
+    res["sp"] = pc.sp_check(model, tp2, eager=True)
+    done("sp")
     ref2, res["dp_unsharded_ms"] = pc.wall_ms(lambda: pc.sample(model, req2))
-    res["dp"] = pc.dp_sample_check(model, dp2, req2, ref2)
+    res["dp"] = pc.dp_sample_check(model, dp2, req2, ref2, eager=True)
     done("dp")
     del ref2
     req_b = {k: v.to(dev) for k, v in payload["req_b"].items()}
@@ -3926,7 +4041,7 @@ def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
         model, tp2, req_b, payload["fp32_forward"].to(dev))
     done("tp_forward")
     pc.reset_launches()
-    lat, ms = pc.wall_ms(lambda: pc.sample(model, req_b, tp2))
+    lat, ms = pc.wall_ms(lambda: pc.sample(model, req_b, tp2, eager=True))
     lat_b, lat32 = req_b["latents"], payload["fp32_latents"].to(dev)
     res["tp_sample"] = dict(
         ms=ms, launches=pc.launches(), rel_rms_vs_unsharded=pc.rel_rms(lat, lat_b),
@@ -3940,9 +4055,11 @@ def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
     batch = train_batch(cfg, 60, dev)
     t = torch.rand((2,), generator=g, device=dev)
     eps = torch.randn((2, 640, cfg.latent_size), generator=g, device=dev)
-    res["train_tp"] = pc.train_check(cfg, tp2, batch, t, eps, dev)
+    res["train_tp"] = pc.train_check(cfg, tp2, batch, t, eps, dev,
+                                     eager=True)
     done("train_tp")
-    res["train_dp"] = pc.train_check(cfg, dp2, batch, t, eps, dev)
+    res["train_dp"] = pc.train_check(cfg, dp2, batch, t, eps, dev,
+                                     eager=True)
     done("train_dp")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -3951,8 +4068,12 @@ def _scale_out_rank(rank: int, port: int, out_dir: str, payload: dict):
 
 def request_two_ranks(req_b: dict, lat32, fwd32, card: str) -> tuple:
     """Request (o): two ranks on the one card (torch.multiprocessing spawn,
-    a gloo world: NCCL refuses two ranks on one device), each building the
-    published DiT from seed 0 and its unsharded references on the card:
+    a gloo world: NCCL refuses two ranks on one device).  Rank 0 first
+    calls the mesh sampler over the gloo mesh: its program must refuse it
+    on the card, naming the backend (a graph records no gloo collective).
+    Then every check runs through the mesh cores' eager forms (`.eager`),
+    each rank building the published DiT from seed 0 and its unsharded
+    references on the card:
     SP tp=2 (the 6400-latent speaker prefill within 1e-2 of
     get_kv_cache_speaker), DP=2 (a B = 2 request's row within 1e-2 of the
     unsharded pass, its noise row bit for bit, 960 kernel A launches),
@@ -4050,6 +4171,8 @@ def request_two_ranks(req_b: dict, lat32, fwd32, card: str) -> tuple:
             f" ms), DP=2 loss {res['train_dp']['loss']:.6f} gradients "
             f"{res['train_dp']['grad_rel_rms']:.3e} "
             f"({res['train_dp']['ms']:.1f} ms) ({card})")
+    log(f"  request o: rank 0's mesh sampler over gloo refused: "
+        f"{ranks[0]['refusal']!r}")
     log(f"  request o: two ranks on one card over gloo, {wall:.1f} s")
     return total, ranks
 

@@ -20,7 +20,9 @@ same command everywhere, ECHO_PROC_ID = host * 8 + local card):
 
 The join is NCCL for ECHO_DEVICE=cuda (the default) and gloo for
 ECHO_DEVICE=cpu.  `initialize_from_env()` is a no-op when ECHO_COORD is
-unset, so single-card deployments are unaffected.  Tested on the CPU with
+unset, so single-card deployments are unaffected.  `shutdown()` leaves
+the world: the mesh programs first, then the process group (mesh.py,
+"Programs over a mesh").  Tested on the CPU with
 two gloo processes (tests/test_torch_distributed.py).
 """
 from __future__ import annotations
@@ -55,6 +57,15 @@ def initialize_from_env() -> bool:
     dist.init_process_group(backend, init_method=f"tcp://{coord}",
                             world_size=num, rank=pid)
     return True
+
+
+def shutdown() -> None:
+    """Leave the process group, if this process joined one: drop every
+    program over a mesh (their graphs hold the group's NCCL communicators),
+    then destroy the group."""
+    pmesh.drop_programs()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def cards_per_host() -> int:

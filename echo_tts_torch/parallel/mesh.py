@@ -38,9 +38,40 @@ A row-parallel product's partial sums stay fp32 (bf16 operands, fp32
 accumulation and output), are summed in fp32 and rounded once to the
 activation dtype, as the unsharded product rounds its fp32 accumulator
 once.
+
+Programs over a mesh.  The mesh cores (the Euler sampler, the train and
+distill steps and the sequence-parallel speaker prefill) run as captured
+programs (utils/programs.py) whose scope is their mesh
+(`program_scope`).  Their collectives (the row-parallel all-reduces, the
+gradients' all-reduce over "data", the W8A8 MAX and int32 all-reduces,
+the prefill's all-gather) are recorded into the CUDA graph as they are,
+each a device-side collective into a tensor the body made:
+
+  * the key holds the mesh's identity and this rank's coordinates
+    (`mesh_key`), and the program keeps the mesh alive, so that a program
+    never replays on another mesh, even an equal one: a graph replays the
+    communicators it was captured with;
+  * on a card every process group of the mesh must be NCCL, whose
+    collectives are device work a graph records; gloo's run on the host,
+    and a capture would record none of them.  Such a call raises before
+    it runs anything, naming the backend (`capture_refusal`); it does not
+    run the body eagerly instead.  On the CPU nothing is captured, and
+    the body runs over gloo as every call does there;
+  * a graph that recorded an NCCL collective holds its communicator:
+    NCCL's finalisation of a communicator waits until every such graph
+    is destroyed.  So the mesh programs go before the process group
+    (`drop_programs`): `parallel.distributed.shutdown` drops them and then
+    destroys the group, and a process that never calls it drops them at
+    exit, before the interpreter frees the groups (an atexit hook
+    registered with the first scope).
+
+`gather_params` stays outside every program: checkpoint writing is host
+work.
 """
 from __future__ import annotations
 
+import atexit
+import gc
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -49,6 +80,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import EchoDiTConfig
+from ..utils import programs
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -105,6 +137,75 @@ def mesh_coords(mesh: Mesh) -> ShardCoords:
     return ShardCoords(mesh.size(0), mesh.size(1),
                        mesh.get_local_rank(DATA_AXIS),
                        mesh.get_local_rank(MODEL_AXIS))
+
+
+def mesh_key(mesh: Mesh) -> tuple:
+    """What a captured program's key holds of its mesh, as the JAX
+    package's lru keys hold the hashable Mesh: a DeviceMesh's identity and
+    this rank's coordinates; a ShardCoords is a value and keys as itself
+    (module docstring, "Programs over a mesh")."""
+    if isinstance(mesh, ShardCoords):
+        return ("coords", mesh)
+    return ("mesh", id(mesh), mesh_coords(mesh))
+
+
+def mesh_backends(mesh: Mesh) -> Tuple[str, ...]:
+    """The backend of each axis's process group ("nccl", "gloo", ...);
+    none for a ShardCoords, which has no process group."""
+    if isinstance(mesh, ShardCoords):
+        return ()
+    return tuple(dist.get_backend(mesh.get_group(axis))
+                 for axis in (DATA_AXIS, MODEL_AXIS))
+
+
+def capture_refusal(mesh: Optional[Mesh], device) -> Optional[str]:
+    """Why a program over `mesh` cannot be captured on `device`, or None
+    when it can: on a card every process group of the mesh must be NCCL
+    (module docstring).  No mesh, a ShardCoords (no process group) and
+    the CPU are never refused."""
+    if mesh is None or torch.device(device).type != "cuda":
+        return None
+    other = sorted({b for b in mesh_backends(mesh) if b != "nccl"})
+    if not other:
+        return None
+    return (f"a program over a mesh whose process group backend is "
+            f"{other[0]!r} cannot be captured on {device}: a CUDA graph "
+            "records NCCL's collectives, not those that run on the host. "
+            "Join the ranks over NCCL, or call the entry point's .eager "
+            "form")
+
+
+_AT_EXIT = []
+
+
+class MeshScope:
+    """A mesh as a program's scope (utils/programs.py, "Scoped programs"):
+    its key part and its refusal; the program holds it, and so the mesh."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh, self.key = mesh, mesh_key(mesh)
+        if not _AT_EXIT:
+            _AT_EXIT.append(atexit.register(drop_programs))
+
+    def check(self, device) -> None:
+        refusal = capture_refusal(self.mesh, device)
+        if refusal is not None:
+            raise RuntimeError(refusal)
+
+
+def program_scope(mesh: Optional[Mesh]) -> Optional[MeshScope]:
+    """The scope a mesh core passes to its program cache: None without a
+    mesh."""
+    return None if mesh is None else MeshScope(mesh)
+
+
+def drop_programs() -> None:
+    """Drop every program over a mesh and free its graph now (module
+    docstring): before the process group is destroyed."""
+    programs.drop_scoped()
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def _group(mesh: Mesh, axis: str):

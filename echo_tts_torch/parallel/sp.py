@@ -17,8 +17,17 @@ takes them replicated), so the model is not tensor-parallel sharded here.
 The encoded patches are gathered once more at the end, and every rank
 returns the same (L, B, T, H, Dh) K/V as dit.get_kv_cache_speaker; a
 tensor-parallel rank takes its heads with parallel.mesh.kv_cache_spec.
+
+The prefill runs as one program of SP_PROGRAMS (utils/programs.py), the
+counterpart of the JAX package's `_sp_core` (an lru_cache of 8 jitted
+programs over shard_map): one per model, config, mesh, axis and latent
+shape, on a card a CUDA graph with its NCCL all-gathers inside it.
+`get_kv_cache_speaker_sp.eager` runs the same body without the program
+(over a gloo mesh on a card, which no graph can capture).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -26,14 +35,17 @@ import torch.distributed as dist
 from ..models import dit as _dit
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary_emb, freqs_tensor
-from .mesh import MODEL_AXIS, is_sharded
+from ..utils import programs
+from .mesh import MODEL_AXIS, is_sharded, program_scope
 
 
 def _all_gather(x: torch.Tensor, group, tp: int, dim: int) -> torch.Tensor:
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(tp)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    """The ranks' x concatenated along `dim` (torch.cat of their parts in
+    rank order), as one all_gather_into_tensor along a leading axis."""
+    lead = x.movedim(dim, 0).contiguous()
+    out = lead.new_empty((tp * lead.shape[0], *lead.shape[1:]))
+    dist.all_gather_into_tensor(out, lead, group=group)
+    return out.movedim(0, dim)
 
 
 def _sp_patch_encoder(blocks, cfg, x: torch.Tensor, n_total: int, group,
@@ -71,32 +83,16 @@ def _sp_patch_encoder(blocks, cfg, x: torch.Tensor, n_total: int, group,
     return x
 
 
-@torch.inference_mode()
-def get_kv_cache_speaker_sp(model: _dit.EchoDiT,
-                            speaker_latent: torch.Tensor, mesh,
-                            axis: str = MODEL_AXIS) -> _dit.KV:
-    """Sequence-parallel twin of dit.get_kv_cache_speaker: the patch axis
-    splits over `axis` of `mesh` (a DeviceMesh), and every rank returns the
-    whole (L, B, T, H, Dh) K/V.  Every rank passes the whole latent.  The
-    patch count must divide the axis; callers pad the reference to a
-    bucket (serve/presets.py) whose patch count does."""
+# The prefill's programs, at most 8 as the JAX package's _sp_core
+SP_PROGRAMS = programs.ProgramCache("sp_prefill", 8)
+
+
+def _sp_body(model: _dit.EchoDiT, speaker_latent: torch.Tensor, *, n: int,
+             group, rank: int, tp: int) -> _dit.KV:
+    """The prefill of one latent on this rank (what the program
+    captures)."""
     cfg = model.cfg
-    s = speaker_latent.shape[1]
     ps = cfg.speaker_patch_size
-    if s % ps != 0:
-        raise ValueError(f"latent length {s} must be divisible by "
-                         f"speaker_patch_size {ps}")
-    n = s // ps
-    tp = mesh.size(mesh.mesh_dim_names.index(axis))
-    if n % tp != 0:
-        raise ValueError(
-            f"speaker patch count {n} must divide the '{axis}' axis ({tp})"
-            " for sequence-parallel prefill; pad to a bucket that does")
-    if any(is_sharded(m) for m in model.modules()):
-        raise ValueError("sequence-parallel prefill takes the whole model on "
-                         "every rank, not a tensor-parallel shard")
-    rank = mesh.get_local_rank(axis)
-    group = mesh[axis].get_group()
     n_local = n // tp
     local = speaker_latent[:, rank * n_local * ps:(rank + 1) * n_local * ps]
     x = _dit.patchify(model.speaker_encoder, cfg, local)
@@ -105,3 +101,49 @@ def get_kv_cache_speaker_sp(model: _dit.EchoDiT,
     state = rms_norm(_all_gather(x, group, tp, 1), model.speaker_norm.weight,
                      cfg.norm_eps)
     return _dit._stacked_kv(model, state, "speaker")
+
+
+def _sp(eager: bool):
+    """get_kv_cache_speaker_sp through its program, or with eager=True
+    its body without the program."""
+
+    @torch.inference_mode()
+    def get_kv_cache_speaker_sp(model: _dit.EchoDiT,
+                                speaker_latent: torch.Tensor, mesh,
+                                axis: str = MODEL_AXIS) -> _dit.KV:
+        """Sequence-parallel twin of dit.get_kv_cache_speaker: the patch
+        axis splits over `axis` of `mesh` (a DeviceMesh), and every rank
+        returns the whole (L, B, T, H, Dh) K/V.  Every rank passes the
+        whole latent.  The patch count must divide the axis; callers pad
+        the reference to a bucket (serve/presets.py) whose patch count
+        does.  One program of SP_PROGRAMS (module docstring); `.eager`
+        runs its body without it."""
+        cfg = model.cfg
+        s = speaker_latent.shape[1]
+        ps = cfg.speaker_patch_size
+        if s % ps != 0:
+            raise ValueError(f"latent length {s} must be divisible by "
+                             f"speaker_patch_size {ps}")
+        n = s // ps
+        tp = mesh.size(mesh.mesh_dim_names.index(axis))
+        if n % tp != 0:
+            raise ValueError(
+                f"speaker patch count {n} must divide the '{axis}' axis "
+                f"({tp}) for sequence-parallel prefill; pad to a bucket that "
+                "does")
+        if any(is_sharded(m) for m in model.modules()):
+            raise ValueError("sequence-parallel prefill takes the whole model "
+                             "on every rank, not a tensor-parallel shard")
+        body = functools.partial(_sp_body, n=n, group=mesh[axis].get_group(),
+                                 rank=mesh.get_local_rank(axis), tp=tp)
+        latent = speaker_latent.to(next(model.parameters()).device)
+        if eager:
+            return body(model, latent)
+        return SP_PROGRAMS((cfg, axis), model, (latent,), lambda: body,
+                           scope=program_scope(mesh))
+
+    return get_kv_cache_speaker_sp
+
+
+get_kv_cache_speaker_sp = _sp(eager=False)
+get_kv_cache_speaker_sp.eager = _sp(eager=True)

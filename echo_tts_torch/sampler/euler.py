@@ -13,12 +13,16 @@ tensors are the rank's rows (parallel.inference.place_request); the CFG
 batch is built from those rows, so it stays G-major over the rank's own
 static K/V, and the result is the rank's rows of the latents.
 
-Without a mesh the sampler runs as one captured program per static
-configuration and input shapes, `_euler_core` (JAX euler.py:197-257, one
-jitted program over the prefill and every step): on a card a CUDA graph
-(utils/programs.py), replayed with one launch.  The per-step scalars are
-Python floats baked into it, as the JAX core bakes them from its cache
-key.  Under a mesh the sampler runs eagerly.
+The sampler runs as one captured program per static configuration, mesh
+and input shapes, `_euler_core` (JAX euler.py:197-257, one jitted program
+over the prefill and every step, the mesh in its lru key): on a card a
+CUDA graph (utils/programs.py), replayed with one launch, under an NCCL
+mesh with the row-parallel all-reduces inside it.  The per-step scalars
+are Python floats baked into it, as the JAX core bakes them from its
+cache key.  `sample_euler_cfg_independent_guidances.eager` runs the same
+body without the program: the form for a mesh that a card cannot capture
+(gloo, whose collectives run on the host), which a caller names; a
+program over such a mesh raises.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 from ..config import EchoDiTConfig
 from ..models import dit
 from ..ops.quant import quantize_kv_int8
-from ..parallel.mesh import mesh_coords
+from ..parallel.mesh import mesh_coords, program_scope
 from ..utils import programs
 
 
@@ -221,78 +225,83 @@ def prefill_static(model: dit.EchoDiT, speaker_latent: torch.Tensor,
     return StaticPrefill(kv_static, spk_cols, mask_cfg, mask_plain)
 
 
-@torch.inference_mode()
-def sample_euler_cfg_independent_guidances(
-    model: dit.EchoDiT,
-    speaker_latent: torch.Tensor,
-    speaker_mask: torch.Tensor,
-    text_input_ids: torch.Tensor,
-    text_mask: torch.Tensor,
-    *,
-    num_steps: int,
-    cfg_scale_text: float,
-    cfg_scale_speaker: float,
-    cfg_min_t: float,
-    cfg_max_t: float,
-    truncation_factor: Optional[float] = None,
-    rescale_k: Optional[float] = None,
-    rescale_sigma: Optional[float] = None,
-    speaker_kv_scale: Optional[float] = None,
-    speaker_kv_max_layers: Optional[int] = None,
-    speaker_kv_min_t: Optional[float] = None,
-    sequence_length: int = 640,
-    dtype=torch.bfloat16,
-    initial_noise: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    kv_quant: bool = False,
-    mesh=None,
-) -> torch.Tensor:
-    """Latents (B, sequence_length, latent_size) float32 on the model's
-    device.  Exactly one of `initial_noise` (f32) or `generator` (a
-    torch.Generator on the model's device, in place of the JAX rng_key)
-    draws the starting noise.
+def _sampler(eager: bool):
+    """The sampler's public function: through its program, or with
+    eager=True its body without the program (module docstring)."""
 
-    kv_quant=True stores the prefilled static K/V int8
-    (ops.quant.quantize_kv_int8, once, before the step loop): half the
-    K/V's memory and read bytes, their scales folded into the attention's
-    column scales.  Opt-in and non-parity (per-token rounding), as in the
-    JAX package (euler.py:244-246).
+    @torch.inference_mode()
+    def sample_euler_cfg_independent_guidances(
+        model: dit.EchoDiT,
+        speaker_latent: torch.Tensor,
+        speaker_mask: torch.Tensor,
+        text_input_ids: torch.Tensor,
+        text_mask: torch.Tensor,
+        *,
+        num_steps: int,
+        cfg_scale_text: float,
+        cfg_scale_speaker: float,
+        cfg_min_t: float,
+        cfg_max_t: float,
+        truncation_factor: Optional[float] = None,
+        rescale_k: Optional[float] = None,
+        rescale_sigma: Optional[float] = None,
+        speaker_kv_scale: Optional[float] = None,
+        speaker_kv_max_layers: Optional[int] = None,
+        speaker_kv_min_t: Optional[float] = None,
+        sequence_length: int = 640,
+        dtype=torch.bfloat16,
+        initial_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        kv_quant: bool = False,
+        mesh=None,
+    ) -> torch.Tensor:
+        """Latents (B, sequence_length, latent_size) float32 on the model's
+        device.  Exactly one of `initial_noise` (f32) or `generator` (a
+        torch.Generator on the model's device, in place of the JAX rng_key)
+        draws the starting noise.
 
-    mesh: a (data, model) DeviceMesh (module docstring); the inputs and
-    the result are the rank's rows.  Over more than one data rank the
-    noise is the rank's rows of the request's, from place_request: a
-    generator here would draw another noise on every rank."""
-    cfg = model.cfg
-    device = next(model.parameters()).device
-    batch_size = text_input_ids.shape[0]
-    if initial_noise is None:
-        if generator is None:
-            raise ValueError("provide initial_noise or generator")
-        if mesh is not None and mesh_coords(mesh).dp > 1:
-            raise ValueError("over a data axis > 1 pass initial_noise (the "
-                             "rank's rows, parallel.inference.place_request)")
-        initial_noise = torch.randn(
-            (batch_size, sequence_length, cfg.latent_size),
-            generator=generator, device=device, dtype=torch.float32)
-    if mesh is None:
+        kv_quant=True stores the prefilled static K/V int8
+        (ops.quant.quantize_kv_int8, once, before the step loop): half the
+        K/V's memory and read bytes, their scales folded into the
+        attention's column scales.  Opt-in and non-parity (per-token
+        rounding), as in the JAX package (euler.py:244-246).
+
+        mesh: a (data, model) DeviceMesh (module docstring); the inputs and
+        the result are the rank's rows.  Over more than one data rank the
+        noise is the rank's rows of the request's, from place_request: a
+        generator here would draw another noise on every rank.
+
+        The prefill and the steps run as one program of EULER_PROGRAMS,
+        under a mesh too; `.eager` takes the same arguments and runs them
+        without it."""
+        cfg = model.cfg
+        device = next(model.parameters()).device
+        batch_size = text_input_ids.shape[0]
+        if initial_noise is None:
+            if generator is None:
+                raise ValueError("provide initial_noise or generator")
+            if mesh is not None and mesh_coords(mesh).dp > 1:
+                raise ValueError("over a data axis > 1 pass initial_noise "
+                                 "(the rank's rows, parallel.inference."
+                                 "place_request)")
+            initial_noise = torch.randn(
+                (batch_size, sequence_length, cfg.latent_size),
+                generator=generator, device=device, dtype=torch.float32)
         core = _euler_core(
             model, num_steps, float(cfg_scale_text), float(cfg_scale_speaker),
             float(cfg_min_t), float(cfg_max_t), _opt_float(truncation_factor),
             _opt_float(rescale_k), _opt_float(rescale_sigma),
             _opt_float(speaker_kv_scale), speaker_kv_max_layers,
-            _opt_float(speaker_kv_min_t), dtype, bool(kv_quant))
-        return core(speaker_latent, speaker_mask, text_input_ids, text_mask,
-                    initial_noise)
+            _opt_float(speaker_kv_min_t), dtype, bool(kv_quant), mesh=mesh)
+        return (core.eager if eager else core)(
+            speaker_latent, speaker_mask, text_input_ids, text_mask,
+            initial_noise)
 
-    plan = build_step_plan(num_steps, cfg_min_t, cfg_max_t, rescale_k,
-                           rescale_sigma, speaker_kv_scale, speaker_kv_min_t)
-    return _euler_body(
-        model, speaker_latent, speaker_mask, text_input_ids, text_mask,
-        initial_noise.to(device), plan=plan, layer_scales=None,
-        truncation_factor=truncation_factor, cfg_scale_text=cfg_scale_text,
-        cfg_scale_speaker=cfg_scale_speaker,
-        speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype,
-        kv_quant=kv_quant, mesh=mesh)
+    return sample_euler_cfg_independent_guidances
+
+
+sample_euler_cfg_independent_guidances = _sampler(eager=False)
+sample_euler_cfg_independent_guidances.eager = _sampler(eager=True)
 
 
 def _opt_float(x) -> Optional[float]:
@@ -300,8 +309,8 @@ def _opt_float(x) -> Optional[float]:
 
 
 # The sampler's programs, one per static configuration (the model, its
-# parameters and the JAX core's key) and input shapes, at most 64: the
-# bound of the JAX package's lru_cache on _euler_core.
+# parameters, the mesh and the JAX core's key) and input shapes, at most
+# 64: the bound of the JAX package's lru_cache on _euler_core.
 EULER_PROGRAMS = programs.ProgramCache("euler", 64)
 
 
@@ -311,7 +320,7 @@ def _euler_body(model, speaker_latent, speaker_mask, text_input_ids,
                 cfg_scale_text, cfg_scale_speaker, speaker_kv_max_layers,
                 dtype, kv_quant: bool, mesh=None) -> torch.Tensor:
     """The prefill and every step on one request's tensors (what
-    _euler_core captures; under a mesh, what the sampler runs eagerly)."""
+    _euler_core captures, and runs itself in its eager form)."""
     x_t = initial_noise.to(torch.float32, copy=True)
     if truncation_factor is not None:
         x_t = x_t * float(np.float32(truncation_factor))
@@ -331,17 +340,19 @@ def _euler_core(model: dit.EchoDiT, num_steps: int, cfg_scale_text: float,
                 speaker_kv_scale: Optional[float],
                 speaker_kv_max_layers: Optional[int],
                 speaker_kv_min_t: Optional[float], dtype,
-                kv_quant: bool = False):
+                kv_quant: bool = False, mesh=None):
     """The sampler core of one static configuration (JAX euler.py:197-257):
     run(speaker_latent, speaker_mask, text_input_ids, text_mask,
     initial_noise) -> latents (B, S, latent) fp32, the prefill and every
     step as one program of EULER_PROGRAMS per input shapes.  Its key is
     the JAX core's (the model's config and the sampler's parameters, the
-    dtype, kv_quant) with the model itself, whose weights the program
-    reads.  The per-step scalars are baked into the program; the step plan
-    and the per-layer speaker scales are built once, on its miss.  The
-    inputs are moved to the model's device first; the noise is drawn by
-    the caller."""
+    dtype, kv_quant, the mesh) with the model itself, whose weights the
+    program reads.  The per-step scalars are baked into the program; the
+    step plan and the per-layer speaker scales are built once, on its
+    miss.  The inputs are moved to the model's device first; the noise is
+    drawn by the caller.  Under a mesh they are the rank's rows and the
+    model its shard.  `run.eager` runs the same body without the
+    program."""
     cfg = model.cfg
     device = next(model.parameters()).device
     key = (cfg, num_steps, cfg_scale_text, cfg_scale_speaker, cfg_min_t,
@@ -360,14 +371,23 @@ def _euler_core(model: dit.EchoDiT, num_steps: int, cfg_scale_text: float,
             truncation_factor=truncation_factor,
             cfg_scale_text=cfg_scale_text, cfg_scale_speaker=cfg_scale_speaker,
             speaker_kv_max_layers=speaker_kv_max_layers, dtype=dtype,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, mesh=mesh)
 
-    def run(speaker_latent, speaker_mask, text_input_ids, text_mask,
-            initial_noise):
+    def place(speaker_latent, speaker_mask, text_input_ids, text_mask,
+              initial_noise) -> list:
         inputs = [x.to(device) for x in (speaker_latent, speaker_mask,
                                          text_input_ids, text_mask)]
         inputs.append(initial_noise.to(device=device, dtype=torch.float32))
-        with torch.inference_mode():
-            return EULER_PROGRAMS(key, model, inputs, make_body)
+        return inputs
 
+    def run(*request):
+        with torch.inference_mode():
+            return EULER_PROGRAMS(key, model, place(*request), make_body,
+                                  scope=program_scope(mesh))
+
+    def eager(*request):
+        with torch.inference_mode():
+            return make_body()(model, *place(*request))
+
+    run.eager = eager
     return run

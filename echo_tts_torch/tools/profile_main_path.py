@@ -1,6 +1,7 @@
 """Where the main path's device time goes, on one CUDA card.
 
-    python -m echo_tts_torch.tools.profile_main_path [--stream | --batch | --train]
+    python -m echo_tts_torch.tools.profile_main_path \
+        [--stream | --batch | --train | --mesh]
 
 Builds the seeded random models at full width (pipeline.random_models),
 answers one voice-cloned request (tests/data/voice.wav as the speaker,
@@ -63,6 +64,12 @@ substeps, the same batch, i and eps fixed) on the same published DiT as
 teacher, replayed (DISTILL_PROGRAMS) and eager.  A tree before the train
 programs (a `git archive` of it) profiles its eager train step alone
 with the same command.
+
+With --mesh it profiles instead the voice-cloned request's sampler over a
+world-size-1 NCCL mesh, as chip_smoke.py's request (n) runs it
+(parallel.distributed.initialize_from_env on localhost, global_mesh(tp =
+1), shard_models): replayed (the mesh sampler's program, captured by the
+warm-up) and eager (its `.eager` form).
 """
 from __future__ import annotations
 
@@ -347,6 +354,55 @@ def distill_stages(batch: dict, eps) -> list:
                           ("optimizer update", "Optimizer.step")))]
 
 
+def mesh_stages(models, voice) -> list:
+    """The voice-cloned request's sampler over a world-size-1 NCCL mesh,
+    replayed and eager."""
+    import os
+    import socket
+
+    from ..parallel import distributed as pdist
+    from ..parallel import inference as pinf
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    os.environ.update(ECHO_COORD=f"127.0.0.1:{s.getsockname()[1]}",
+                      ECHO_NUM_PROCS="1", ECHO_PROC_ID="0")
+    s.close()
+    pdist.initialize_from_env()
+    try:
+        mesh = pdist.global_mesh(tp=1)
+        models = pinf.shard_models(models, mesh)
+        lat, mask = pl.get_speaker_latent_and_mask(models, voice)
+        ids, tmask = get_text_input_ids_and_mask([TEXT], MAX_TEXT_LENGTH)
+        dev = models.device
+        shape = (1, SAMPLER_DEFAULTS["sequence_length"],
+                 models.dit_cfg.latent_size)
+        noise = torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        inputs = pinf.place_request(
+            mesh, *(torch.as_tensor(a).to(dev)
+                    for a in (lat, mask, ids, tmask)), noise)
+
+        def run(fn):
+            return fn(models.dit, *inputs[:4], initial_noise=inputs[4],
+                      dtype=models.dtype, mesh=mesh, **SAMPLER_DEFAULTS)
+
+        def sample():
+            return run(sample_euler_cfg_independent_guidances)
+
+        def sample_eager():
+            return run(sample_euler_cfg_independent_guidances.eager)
+
+        sample()                            # warm-up: eager run and capture
+        _, walls = wall_ms(sample, REPS)
+        _, eager_walls = wall_ms(sample_eager, REPS)
+        return [_profiled("mesh_sampler_world1", sample, walls),
+                _profiled("mesh_sampler_world1_eager", sample_eager,
+                          eager_walls)]
+    finally:
+        pdist.shutdown()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is False")
@@ -367,6 +423,10 @@ def main(argv) -> int:
         return 0
     if "--batch" in argv:
         print(json.dumps({"card": card, "stages": batch_stages(models, voice)}),
+              flush=True)
+        return 0
+    if "--mesh" in argv:
+        print(json.dumps({"card": card, "stages": mesh_stages(models, voice)}),
               flush=True)
         return 0
     pl.sample_pipeline(models, sample_fn, TEXT, voice, 0)   # warm-up

@@ -26,13 +26,14 @@ Over a (data, model) mesh (`mesh=`) the teacher is sharded like the
 student, i and eps are drawn for the global batch and each rank keeps its
 rows, and the loss is the global mean, as in train/step.py.
 
-Without a mesh the step is one program of DISTILL_PROGRAMS, as the train
-step is one of train/step.py's TRAIN_PROGRAMS: the teacher's substeps,
-the student's forward and backward, the clip, AdamW and the EMA in one
-CUDA graph per static key and batch shapes on a card, i and eps drawn
-before it.  Its owners are the student's TrainState and the teacher: the
-graph reads the teacher's weights in place, and is dropped when either
-is freed.  Under a mesh the step runs eagerly.
+The step is one program of DISTILL_PROGRAMS, as the train step is one of
+train/step.py's TRAIN_PROGRAMS: the teacher's substeps, the student's
+forward and backward, the clip, AdamW and the EMA in one CUDA graph per
+static key, mesh and batch shapes on a card (under an NCCL mesh with
+every collective inside it), i and eps drawn before it.  Its owners are
+the student's TrainState and the teacher (under a mesh, shard_teacher's
+copy): the graph reads the teacher's weights in place, and is dropped
+when either is freed.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ import torch
 from ..models import dit
 from ..ops.quant import qat_tag_dit_params
 from ..sampler.euler import INIT_SCALE, make_cfg_branch_masks
-from ..parallel.mesh import shard_params
+from ..parallel.mesh import program_scope, shard_params
 from ..utils import programs
 from .step import (Optimizer, TrainState, apply_gradients, attention_route,
                    create_train_state, global_batch, make_optimizer,
@@ -175,8 +176,9 @@ def shard_teacher(teacher: dit.EchoDiT, mesh) -> dit.EchoDiT:
 
 
 # One program per static key (distill_loss's keywords, EMA and its
-# decay, the clip, the attention route), (train state, teacher) and batch
-# shapes (JAX: make_distill_step's jitted distill_step, distill.py:164-202).
+# decay, the clip, the attention route), (train state, teacher), mesh and
+# batch shapes (JAX: make_distill_step's jitted distill_step,
+# distill.py:164-202).
 DISTILL_PROGRAMS = programs.ProgramCache("distill_step", 8)
 
 
@@ -201,11 +203,12 @@ def make_distill_step(tx: Optimizer, ema_decay: float = 0.999, mesh=None,
     distill_step(state, teacher, batch, generator=None, *, i=None,
     eps=None) -> (state, loss), state updated in place; the frozen teacher
     rides as its own argument (under a mesh, sharded like the student:
-    shard_teacher) and the batch is the global one.  Without a mesh the
-    update is one program of DISTILL_PROGRAMS (module docstring);
-    `distill_step.eager` runs the same body without it."""
+    shard_teacher) and the batch is the global one.  The update is one
+    program of DISTILL_PROGRAMS (module docstring), over a mesh too;
+    `distill_step.eager` runs the same body without it (over a gloo mesh
+    on a card, which no graph can capture)."""
     body = functools.partial(_distill_body, tx=tx, ema_decay=ema_decay,
-                             distill_kw=distill_kw)
+                             distill_kw=distill_kw, mesh=mesh)
     n_steps = distill_kw.get("num_student_steps", NUM_STUDENT_STEPS)
 
     def inputs(state: TrainState, batch: Dict, generator, i, eps) -> tuple:
@@ -220,8 +223,7 @@ def make_distill_step(tx: Optimizer, ema_decay: float = 0.999, mesh=None,
               i: Optional[torch.Tensor] = None,
               eps: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, torch.Tensor]:
-        loss = body((state, teacher), *inputs(state, batch, generator, i, eps),
-                    mesh=mesh)
+        loss = body((state, teacher), *inputs(state, batch, generator, i, eps))
         state.step += 1
         return state, loss
 
@@ -230,13 +232,11 @@ def make_distill_step(tx: Optimizer, ema_decay: float = 0.999, mesh=None,
                      i: Optional[torch.Tensor] = None,
                      eps: Optional[torch.Tensor] = None
                      ) -> Tuple[TrainState, torch.Tensor]:
-        if mesh is not None:
-            return eager(state, teacher, batch, generator, i=i, eps=eps)
         key = (tuple(sorted(distill_kw.items())), state.ema is not None,
                ema_decay, tx.grad_clip, attention_route())
         loss = DISTILL_PROGRAMS(key, (state, teacher),
                                 inputs(state, batch, generator, i, eps),
-                                lambda: body)
+                                lambda: body, scope=program_scope(mesh))
         state.step += 1
         return state, loss
 

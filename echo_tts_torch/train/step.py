@@ -58,8 +58,14 @@ waits on the host:
     (tools/train_checks.adamw_form_gap on an H100 80GB HBM3 at 700 W);
   * t and eps are drawn by the caller's generator before the program, in
     the order flow_matching_loss draws them, and passed in.
-The update count stays on the host.  Over a mesh the step runs eagerly
-(the mesh cores are not programs yet).
+The update count stays on the host.  Over a mesh the step is a program
+too, with the mesh as its scope (parallel/mesh.py, "Programs over a
+mesh"): masked_mse's two all-reduces, the row-parallel ones of the
+forward and the backward, the gradients' all-reduce over "data"
+(reduce_gradients) and the clip's over "model" are captured with the
+kernels.  The clip splits the gradients into the sharded and the
+replicated ones on the host, where the program is built, so that the
+body copies nothing to the card.
 
 A batch is a dict of arrays or tensors (`place_batch` moves it to the
 model's device):
@@ -80,7 +86,8 @@ import torch.distributed as dist
 
 from ..models import dit
 from ..parallel.mesh import (all_reduce_fp32, batch_spec, data_group,
-                             mesh_coords, model_group, sharded_params)
+                             mesh_coords, model_group, program_scope,
+                             sharded_params)
 from ..utils import programs
 
 
@@ -228,6 +235,14 @@ def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor,
             g.mul_(mult.reshape(shape))
 
 
+def _square_sum(grads: List[torch.Tensor], device) -> torch.Tensor:
+    """The sum of the squares of every gradient's norm, a 0-d fp32 tensor
+    on `device` (0 for none)."""
+    if not grads:
+        return torch.zeros((), device=device)
+    return torch.stack(torch._foreach_norm(grads)).float().square().sum()
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """AdamW (b1 0.9, b2 0.95, eps 1e-8) with optax's global-norm clipping
@@ -267,20 +282,21 @@ class Optimizer:
         squares are summed over the model group."""
         params = [p for group in opt.param_groups for p in group["params"]]
         grads = [p.grad for p in params]
-        norms = torch.stack(torch._foreach_norm(grads)).float()
+        device = grads[0].device
         group = None if mesh is None else model_group(mesh)
         if group is None:
-            norm = torch.linalg.vector_norm(norms)
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)).float())
         else:
-            split = torch.tensor([id(p) in sharded for p in params],
-                                 device=norms.device)
-            sq_split = torch.where(split, norms, 0.0).square().sum()
+            sq_split = _square_sum([p.grad for p in params
+                                    if id(p) in sharded], device)
             dist.all_reduce(sq_split, group=group)
-            sq_rep = torch.where(split, 0.0, norms).square().sum()
+            sq_rep = _square_sum([p.grad for p in params
+                                  if id(p) not in sharded], device)
             norm = (sq_split + sq_rep).sqrt()
         clip_by_global_norm_(grads, norm, self.grad_clip)
         if not isinstance(lr, torch.Tensor):
-            lr = self.learning_rate(lr, norms.device)
+            lr = self.learning_rate(lr, device)
         for group in opt.param_groups:
             group["lr"].copy_(lr)
         opt.step()
@@ -382,7 +398,7 @@ def attention_route():
 
 
 # One program per static key (remat mode, EMA and its decay, the clip,
-# the attention route), train state and batch shapes (JAX:
+# the attention route), train state, mesh and batch shapes (JAX:
 # make_train_step's jitted train_step, step.py:154-168).
 TRAIN_PROGRAMS = programs.ProgramCache("train_step", 16)
 
@@ -405,18 +421,18 @@ def make_train_step(tx: Optimizer, ema_decay: float = 0.999,
                     remat: str = "attn", mesh=None):
     """The train step: train_step(state, batch, generator=None, *, t=None,
     eps=None) -> (state, loss), state updated in place.  `remat` goes to
-    flow_matching_loss.  Without a mesh the update runs as one program of
-    TRAIN_PROGRAMS (module docstring): its first call at a key, state and
-    batch shapes runs eagerly and captures, later ones replay.  Under a
-    mesh (state from create_train_state with the same mesh) it runs
-    eagerly; the batch, t and eps are the global batch's, of which each
-    rank takes its rows, and the loss is the global one.  t and eps are
-    drawn from `generator` before the update unless given.
-    `train_step.eager` takes the same arguments and runs the same body
-    without the program."""
+    flow_matching_loss.  The update runs as one program of TRAIN_PROGRAMS
+    (module docstring): its first call at a key, state, mesh and batch
+    shapes runs eagerly and captures, later ones replay.  Under a mesh
+    (state from create_train_state with the same mesh) the batch, t and
+    eps are the global batch's, of which each rank takes its rows, and the
+    loss is the global one.  t and eps are drawn from `generator` before
+    the update unless given.  `train_step.eager` takes the same arguments
+    and runs the same body without the program (over a gloo mesh on a
+    card, which no graph can capture)."""
     dit.remat_mode(remat)
     body = functools.partial(_train_body, tx=tx, ema_decay=ema_decay,
-                             remat=remat)
+                             remat=remat, mesh=mesh)
 
     def inputs(state: TrainState, batch: Dict, generator, t, eps) -> tuple:
         device = next(state.model.parameters()).device
@@ -429,8 +445,7 @@ def make_train_step(tx: Optimizer, ema_decay: float = 0.999,
               t: Optional[torch.Tensor] = None,
               eps: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, torch.Tensor]:
-        loss = body(state, *inputs(state, batch, generator, t, eps),
-                    mesh=mesh)
+        loss = body(state, *inputs(state, batch, generator, t, eps))
         state.step += 1
         return state, loss
 
@@ -439,13 +454,11 @@ def make_train_step(tx: Optimizer, ema_decay: float = 0.999,
                    t: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
-        if mesh is not None:
-            return eager(state, batch, generator, t=t, eps=eps)
         key = (remat, state.ema is not None, ema_decay, tx.grad_clip,
                attention_route())
         loss = TRAIN_PROGRAMS(key, state,
                               inputs(state, batch, generator, t, eps),
-                              lambda: body)
+                              lambda: body, scope=program_scope(mesh))
         state.step += 1
         return state, loss
 

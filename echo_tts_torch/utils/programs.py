@@ -88,6 +88,40 @@ replay one more.  The temporaries of such a body, the saved activations
 and the backward's buffers, come from the shared pool like every other
 program's: safe, since no two programs replay at once (below).
 
+Scoped programs.  A body may depend on more than its owners: the mesh
+cores (the Euler sampler, the train and distill steps and the
+sequence-parallel speaker prefill under a (data, model) mesh) run
+collectives whose communicators their graphs record.  Such a call passes
+a `scope`, an object this module treats as opaque but for two members:
+`scope.key`, hashable, which joins the program's key, and
+`scope.check(device)`, called before a miss runs anything, which raises
+to refuse the program (it does not ask for an eager run instead).  The
+program keeps its scope alive.  `drop_scoped` drops every program made
+with a scope, with its graph, at once; whatever the scopes stand for
+decides when (parallel/mesh.py, "Programs over a mesh": before the
+process group goes).  Two rules hold for any body that runs collectives:
+
+  * in a process that has joined a process group the capture runs in
+    CUDA's "thread_local" mode, not PyTorch's default "global".
+    ProcessGroupNCCL's watchdog thread polls the events of earlier
+    collectives (the miss run's among them) with cudaEventQuery, and
+    under "global" such a call from any thread during a capture
+    invalidates it ("operation not permitted when stream is capturing").
+    Letting the miss run's work complete first is not enough, since the
+    watchdog polls a completed event until it has seen it (torch.cuda.
+    graph synchronises on entry all the same).  "thread_local" forbids
+    unsafe calls on the capturing thread alone, which issues only the
+    body's work;
+  * ranks stay in step: every rank makes the same calls, so it misses,
+    captures and replays the same programs in the same order.  A rank
+    whose program is gone (the LRU bound, a freed owner) while a peer's
+    lives cannot leave the peer waiting: its miss runs the body eagerly,
+    which issues every collective of the body once, in the body's
+    order, as the peer's replay does, and its capture issues none (a
+    capture launches nothing).  Either way a call issues each collective
+    once, in one order.  The eager run on a miss is also the
+    communicators' warm-up: it creates each before any capture.
+
 Concurrency.  All programs share one memory pool, so two of them must
 never replay at the same time: one replay's temporaries are another's.
 Every call runs under one process-wide lock, on the calling thread's
@@ -228,14 +262,24 @@ def _static_copy(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 # one program, and the cache of a kind of them
 # ---------------------------------------------------------------------------
 
+def _capture_mode() -> str:
+    """"thread_local" in a process that has joined a process group, else
+    PyTorch's default "global" (module docstring, "Scoped programs")."""
+    import torch.distributed as dist
+    joined = dist.is_available() and dist.is_initialized()
+    return "thread_local" if joined else "global"
+
+
 class Program:
     """One captured body: its static input buffers, its graph and static
     output (None on the CPU), the launches its capture recorded by
-    counter, and what it holds."""
+    counter, and what it holds (its scope among them)."""
 
-    def __init__(self, owners: tuple, body: Callable, spec, static_in: list):
+    def __init__(self, owners: tuple, body: Callable, spec, static_in: list,
+                 scope=None):
         self.owner_refs = [weakref.ref(o) for o in owners]
         self.body, self.spec, self.static_in = body, spec, static_in
+        self.scope = scope
         self.graph = None
         self.static_out = None
         self.launches: List[Tuple[int, int]] = []
@@ -254,8 +298,8 @@ class Program:
         t0 = time.perf_counter()
         captured = False
         try:
-            with torch.cuda.device(device), torch.cuda.graph(graph,
-                                                             pool=pool[0]):
+            with torch.cuda.device(device), torch.cuda.graph(
+                    graph, pool=pool[0], capture_error_mode=_capture_mode()):
                 out = self._call_body(owner)
             captured = True
         finally:
@@ -349,17 +393,21 @@ class ProgramCache:
             for k in [k for k in self.entries if owner_id in k[1]]:
                 del self.entries[k]
 
-    def __call__(self, key: tuple, owner, inputs, make_body: Callable):
-        """The program for (key, owner, inputs' shapes) run on inputs (a
-        sequence of trees of tensors, all on one device); make_body() ->
+    def __call__(self, key: tuple, owner, inputs, make_body: Callable,
+                 scope=None):
+        """The program for (key, owner, scope, inputs' shapes) run on inputs
+        (a sequence of trees of tensors, all on one device); make_body() ->
         body, with body(owner, *inputs) -> a tree of tensors it made, is
-        called on a miss.  owner: one object, or a tuple of them."""
+        called on a miss.  owner: one object, or a tuple of them.  scope:
+        None, or what else the body depends on (module docstring, "Scoped
+        programs")."""
         owners = owner if isinstance(owner, tuple) else (owner,)
         leaves: list = []
         spec = _flatten(tuple(inputs), leaves)
         shapes = tuple(None if x is None else (tuple(x.shape), x.dtype, x.device)
                        for x in leaves)
-        full = (key, tuple(map(id, owners)), spec, shapes)
+        full = (key, tuple(map(id, owners)), spec, shapes,
+                None if scope is None else scope.key)
         with _LOCK:
             purge()
             prog = self.entries.get(full)
@@ -373,9 +421,12 @@ class ProgramCache:
                 raise ValueError(f"a program's inputs lie on one device; got "
                                  f"{sorted(map(str, devices))}")
             device = devices.pop()
+            if scope is not None:
+                scope.check(device)
             self.misses += 1
             prog = Program(owners, make_body(), spec,
-                           [self._static(i, x) for i, x in enumerate(leaves)])
+                           [self._static(i, x) for i, x in enumerate(leaves)],
+                           scope)
             out = _clone_tree(prog._call_body(owner))   # the eager miss run
             if device.type == "cuda":
                 prog.capture(owner, device, self.name)
@@ -403,6 +454,15 @@ def purge() -> None:
     with _LOCK:
         for cache in _CACHES:
             cache._purge()
+
+
+def drop_scoped() -> None:
+    """Drop every program made with a scope, in every cache, with its graph
+    (module docstring, "Scoped programs")."""
+    with _LOCK:
+        for cache in _CACHES:
+            for k in [k for k in cache.entries if k[-1] is not None]:
+                del cache.entries[k]
 
 
 def clear_all() -> None:

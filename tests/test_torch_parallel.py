@@ -12,9 +12,11 @@ JAX's get_kv_cache_speaker at 1e-5 / 1e-4, and its ValueError; a tp = 4
 forward with a replicated tower; the dp2 x tp2 train step (remat "full",
 so that the recompute issues the all-reduces again) against the port's
 one-process step, parameters after three steps at 1e-5 / 1e-4, and the
-loss descending; one quant-aware distill step likewise.  The per-shard
-kernel wrapper, the mesh specs and shard_params run in this process, shard
-by shard.
+loss descending; one quant-aware distill step likewise.  Every one of
+them reaches the mesh cores' programs (utils/programs.py), as a caller
+does; tests/test_torch_mesh_programs.py holds the programs against their
+eager bodies.  The per-shard kernel wrapper, the mesh specs and
+shard_params run in this process, shard by shard.
 """
 import dataclasses
 import os
@@ -458,7 +460,9 @@ def test_sharded_forward_refuses_an_unsharded_model():
 def test_port_parallel_imports_no_jax():
     code = ("import sys; import echo_tts_torch.parallel.mesh, "
             "echo_tts_torch.parallel.inference, echo_tts_torch.parallel.sp, "
-            "echo_tts_torch.parallel.distributed; "
+            "echo_tts_torch.parallel.distributed, "
+            "echo_tts_torch.utils.programs, echo_tts_torch.sampler.euler, "
+            "echo_tts_torch.train.step, echo_tts_torch.train.distill; "
             "assert 'jax' not in sys.modules and not any("
             "m.startswith('echo_tts_tpu') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

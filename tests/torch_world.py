@@ -26,6 +26,7 @@ from echo_tts_torch.parallel import mesh as pmesh  # noqa: E402
 from echo_tts_torch.parallel.sp import get_kv_cache_speaker_sp  # noqa: E402
 from echo_tts_torch.sampler.euler import (  # noqa: E402
     sample_euler_cfg_independent_guidances)
+from echo_tts_torch.sampler import euler  # noqa: E402
 from echo_tts_torch.tools import bridge  # noqa: E402
 from echo_tts_torch.train import distill as tdistill  # noqa: E402
 from echo_tts_torch.train import step as tstep  # noqa: E402
@@ -123,9 +124,141 @@ def case_distill(job, meshes):
             "params": pmesh.gather_params(state.model, mesh)}
 
 
+# ---------------------------------------------------------------------------
+# The mesh cores as programs (tests/test_torch_mesh_programs.py): each
+# program's miss and hit against the same body run eagerly (`.eager`)
+# ---------------------------------------------------------------------------
+
+def _counts(cache) -> tuple:
+    return cache.misses, cache.hits, len(cache)
+
+
+def _program_runs(cache, eager, program) -> dict:
+    """eager(), then program() twice (its miss, then its hit), with the
+    cache's (misses, hits, entries) before and after each call."""
+    out = {"eager": eager(), "counts": [_counts(cache)]}
+    for name in ("miss", "hit"):
+        out[name] = program()
+        out["counts"].append(_counts(cache))
+    return out
+
+
+def _sampler_runs(job, model, mesh) -> dict:
+    placed = pinf.place_request(mesh, *job["request"])
+    kw = dict(mesh=mesh, dtype=torch.float32,
+              sequence_length=placed[-1].shape[1], **job["sampler_kw"])
+    return _program_runs(
+        euler.EULER_PROGRAMS,
+        lambda: sample_euler_cfg_independent_guidances.eager(
+            model, *placed[:4], initial_noise=placed[4], **kw),
+        lambda: sample_euler_cfg_independent_guidances(
+            model, *placed[:4], initial_noise=placed[4], **kw))
+
+
+def case_prog_sampler(job, meshes):
+    """The sampler's programs on dp2 x tp2 and on tp = 4 (each rank's
+    rows; the whole batch at tp = 4), and the cache's mesh keys."""
+    out, models = {}, []
+    for name in ("dp2tp2", "tp4"):
+        mesh = meshes[name]
+        models.append(pmesh.shard_params(model_from(job), mesh))
+        out[name] = _sampler_runs(job, models[-1], mesh)
+        out[name]["mesh_key"] = _plain_key(pmesh.mesh_key(mesh))
+    out["mesh_keys"] = [_plain_key(k[-1])
+                        for k in euler.EULER_PROGRAMS.entries]
+    return out
+
+
+def _plain_key(key: tuple) -> tuple:
+    """A mesh key in plain tuples (torch.load's weights_only form)."""
+    kind, ident, coords = key
+    return kind, ident, tuple(coords)
+
+
+def case_prog_two_meshes(job, meshes):
+    """One whole model, one request, one key, on two data-parallel meshes
+    of one layout: a program each."""
+    model = model_from(job)
+    out = {name: _sampler_runs(job, model, meshes[name])
+           for name in ("dp4", "dp4_again")}
+    out["entries"] = len(euler.EULER_PROGRAMS)
+    return out
+
+
+def _optimizer_state(state) -> list:
+    return [v.clone() for p in state.model.parameters()
+            for k, v in sorted(state.optimizer.state[p].items())
+            if k in ("exp_avg", "exp_avg_sq")]
+
+
+def _state_tensors(state) -> dict:
+    """The rank's parameters, AdamW moments and EMA (its shards)."""
+    return {"params": [p.detach().clone() for p in state.model.parameters()],
+            "moments": _optimizer_state(state),
+            "ema": [p.detach().clone() for p in state.ema.parameters()]}
+
+
+def case_prog_train(job, meshes):
+    """Three dp2 x tp2 train steps (remat "full", an EMA) through the
+    program and three through `.eager` from an identical state, on the
+    same draws."""
+    mesh = meshes["dp2tp2"]
+    out = {}
+    for form in ("program", "eager"):
+        model = model_from(job, "train")
+        tx = tstep.make_optimizer(lr=1e-3)
+        state = tstep.create_train_state(model, tx, ema=True, mesh=mesh)
+        step = tstep.make_train_step(tx, ema_decay=0.9, remat="full",
+                                     mesh=mesh)
+        run = step if form == "program" else step.eager
+        gen = torch.Generator().manual_seed(5)
+        before = _counts(tstep.TRAIN_PROGRAMS)
+        losses = [run(state, job["batch"], gen)[1].clone() for _ in range(3)]
+        out[form] = {"losses": torch.stack(losses),
+                     "counts": [before, _counts(tstep.TRAIN_PROGRAMS)],
+                     **_state_tensors(state)}
+    return out
+
+
+def case_prog_distill(job, meshes):
+    """One quant-aware dp2 x tp2 distill step (an EMA) through the program
+    and through `.eager` from an identical state."""
+    mesh = meshes["dp2tp2"]
+    out = {}
+    for form in ("program", "eager"):
+        tx = tstep.make_optimizer(lr=1e-3)
+        state = tstep.create_train_state(model_from(job, "train"), tx,
+                                         ema=True, mesh=mesh)
+        teacher = tdistill.shard_teacher(model_from(job, "train"), mesh)
+        step = tdistill.make_distill_step(tx, ema_decay=0.9, mesh=mesh,
+                                          num_student_steps=4, substeps=2,
+                                          quant_aware=True)
+        run = step if form == "program" else step.eager
+        gen = torch.Generator().manual_seed(6)
+        before = _counts(tdistill.DISTILL_PROGRAMS)
+        loss = run(state, teacher, job["batch"], gen)[1].clone()
+        out[form] = {"loss": loss,
+                     "counts": [before, _counts(tdistill.DISTILL_PROGRAMS)],
+                     **_state_tensors(state)}
+    return out
+
+
+def case_prog_sp(job, meshes):
+    """The sequence-parallel prefill's program over tp = 4."""
+    from echo_tts_torch.parallel import sp
+    mesh = meshes["tp4"]
+    model = model_from(job)
+    return _program_runs(
+        sp.SP_PROGRAMS,
+        lambda: get_kv_cache_speaker_sp.eager(model, job["sp_latent"], mesh),
+        lambda: get_kv_cache_speaker_sp(model, job["sp_latent"], mesh))
+
+
 CASES = {f.__name__[5:]: f for f in (case_sampler, case_w8a8,
                                      case_tp4_forward, case_sp, case_train,
-                                     case_distill)}
+                                     case_distill, case_prog_sampler,
+                                     case_prog_two_meshes, case_prog_train,
+                                     case_prog_distill, case_prog_sp)}
 
 
 def main(job_path, rank, world, port):
@@ -134,9 +267,12 @@ def main(job_path, rank, world, port):
                             world_size=world, rank=rank)
     meshes = {"dp2tp2": pmesh.make_mesh(dp=2, tp=2),
               "tp4": pmesh.make_mesh(dp=1, tp=4)}
+    for name in job.get("meshes", ()):       # more, by name: "dp4", ...
+        meshes[name] = pmesh.make_mesh(dp=world, tp=1)
     out = {"coords": tuple(pmesh.mesh_coords(meshes["dp2tp2"]))}
     for name in job["cases"]:
         out[name] = CASES[name](job, meshes)
+    assert "jax" not in sys.modules
     torch.save(out, os.path.join(os.path.dirname(job_path), f"rank{rank}.pt"))
     dist.destroy_process_group()
 
