@@ -1,0 +1,6 @@
+"""The share of the traced window in which no device operation ran (%)."""
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)

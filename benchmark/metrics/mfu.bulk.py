@@ -1,0 +1,6 @@
+"""The bulk cell's sampler FLOPs over window x peak (%)."""
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx)
