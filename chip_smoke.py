@@ -90,7 +90,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      later-block program per block size ((e)'s is (q)'s); the
      default
      warm-up manifest with batch_sizes=(8,) through
-     serve.handler.warmup_compile, each entry's capture seconds, the
+     serve.handler.warmup_compile, each entry's build seconds, the
      shared pool's and the static inputs' bytes and memory_reserved, then
      a second pass that captures nothing, its streams included, and
      reserves no more (request_programs says each gate);
@@ -200,7 +200,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from echo_tts_torch.utils.profiling import (  # noqa: E402
-    PEAK_INT8_OPS, bound, host_us_paired, timed)
+    PEAK_INT8_OPS, bound, host_us_paired, now_ns, timed)
 
 INT8_FP32_BOUND = 1e-5  # W8A8 fp32 output vs plain (tests/test_quant.py:68)
 REL_RMS_BOUND = 1e-2   # bf16 kernel vs plain (PARITY.md: bf16 vs fp32 1.05e-2)
@@ -2909,18 +2909,18 @@ def stream_replays(models, req_b: dict, qdit, counted, failures: list,
             eager_a = BENCH_STREAM["audio"]
         else:
             fresh_programs()
-            n0, later0 = len(programs.CAPTURES), bw.BLOCK_PROGRAMS.misses
+            mark0, later0 = now_ns(), bw.BLOCK_PROGRAMS.misses
             t0 = time.perf_counter()
             eager_a = run(first, "eager")
             eager_s = time.perf_counter() - t0
-            captures = programs.CAPTURES[n0:]
+            captures = builds_since(mark0)
             later = bw.BLOCK_PROGRAMS.misses - later0
             same["replay"] = np.array_equal(run(first, "replay"), eager_a)
-        n1 = len(programs.CAPTURES)
+        mark1 = now_ns()
         t0 = time.perf_counter()
         replay_b = run(second, "replay, 2nd set")
         replay_s = time.perf_counter() - t0
-        recaptured = len(programs.CAPTURES) - n1
+        recaptured = len(builds_since(mark1))
         static, pool = programs.static_bytes(dev), programs.pool_bytes(dev)
         fresh_programs()
         later0 = bw.BLOCK_PROGRAMS.misses
@@ -2938,8 +2938,8 @@ def stream_replays(models, req_b: dict, qdit, counted, failures: list,
             f"against the eager run, bit for bit: {same}"
             + ("" if eager_s is None else
                f"; first run {eager_s:.2f} s (eager and {len(captures)} "
-               f"captures, {sum(sec for _, sec in captures):.2f} s of "
-               f"capture: {[(n, round(sec, 3)) for n, sec in captures]})")
+               f"builds, {sum(sec for _, sec in captures):.2f} s of "
+               f"build: {[(n, round(sec, 3)) for n, sec in captures]})")
             + f"; replay of the 2nd set {replay_s:.2f} s; later-block "
             f"programs {later}; static inputs {static} bytes, pool {pool} "
             f"bytes ({card})")
@@ -3057,7 +3057,7 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
     reserved0 = torch.cuda.memory_reserved(dev)
     passes = []
     for i in range(2):
-        captures = len(programs.CAPTURES)
+        mark = now_ns()
         rss0, n_rss = host_rss(), len(CAPTURE_RSS)
         t0 = time.perf_counter()
         report = counted(lambda: th.warmup_compile(models, batch_sizes=(8,)),
@@ -3078,14 +3078,14 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
                            reserved=torch.cuda.memory_reserved(dev),
                            pool=programs.pool_bytes(dev),
                            static=programs.static_bytes(dev),
-                           captured=len(programs.CAPTURES) - captures,
-                           capture_s=sum(s for r in report
-                                         for s in r["captures"])))
+                           captured=len(builds_since(mark)),
+                           build_s=sum(s for r in report
+                                       for s in r["builds"])))
         for r in report:
             e = r["entry"]
             log(f"  request z, warm-up pass {i + 1}: {e['kind']} "
                 f"{ {k: v for k, v in e.items() if k != 'kind'} }: "
-                f"{r['seconds']:.2f} s, capture seconds {r['captures']}, "
+                f"{r['seconds']:.2f} s, build seconds {r['builds']}, "
                 f"pool {r['pool_bytes']} bytes, static inputs "
                 f"{r['static_bytes']} bytes")
     first, second = passes
@@ -3096,8 +3096,8 @@ def request_programs(models, req_b: dict, counters, card: str) -> dict:
         failures.append(f"second pass: {second}, first {first}")
     log(f"  request z: default manifest with batch_sizes=(8,), "
         f"{len(manifest)} entries: pass 1 {first['seconds']:.1f} s "
-        f"({first['captured']} programs captured, {first['capture_s']:.2f} s "
-        f"of capture), pass 2 {second['seconds']:.1f} s (captured "
+        f"({first['captured']} programs captured, {first['build_s']:.2f} s "
+        f"of build), pass 2 {second['seconds']:.1f} s (captured "
         f"{second['captured']}); programs {second['stats']}; pool "
         f"{first['pool']} bytes, static inputs {first['static']} bytes; "
         f"memory_reserved {reserved0} before, "
@@ -3198,13 +3198,19 @@ def no_sync_in_eager_runs():
         programs.Program._call_body = call
 
 
-def captures_since(n_captures: int, n_rss: int) -> list:
-    """[(cache name, capture s, host VmRSS growth bytes)] of the captures
-    after the first n_captures (programs.CAPTURES) and n_rss
-    (CAPTURE_RSS)."""
+def builds_since(mark: int) -> list:
+    """[(cache name, build s)] of the programs built (the eager run and the
+    capture) since now_ns() read `mark`."""
     from echo_tts_torch.utils import programs
+    return [(b.attrs["cache"], b.seconds) for b in programs.builds(mark)]
+
+
+def captures_since(mark: int, n_rss: int) -> list:
+    """[(cache name, build s, host VmRSS growth bytes)] of the programs
+    built and captured since now_ns() read `mark`, with the captures after
+    the first n_rss (CAPTURE_RSS)."""
     return [(name, sec, after - before) for (name, sec), (_, before, after)
-            in zip(programs.CAPTURES[n_captures:], CAPTURE_RSS[n_rss:])]
+            in zip(builds_since(mark), CAPTURE_RSS[n_rss:])]
 
 
 def snapshot(state) -> list:
@@ -3330,7 +3336,7 @@ def request_train(counters, card: str) -> dict:
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
-        marks = len(programs.CAPTURES), len(CAPTURE_RSS)
+        marks = now_ns(), len(CAPTURE_RSS)
         with no_sync_in_eager_runs():
             times, state, losses = run(mode)
         torch.cuda.synchronize()
@@ -3369,7 +3375,7 @@ def request_train(counters, card: str) -> dict:
                            resident_gib=resident / 2**30,
                            launches_per_step=times.launches[-1],
                            grad_rel_rms_vs_none=rel,
-                           capture_s=captured[0][1],
+                           build_s=captured[0][1],
                            capture_rss_bytes=captured[0][2],
                            pool_bytes=pool)
         log(f"  request i, remat {mode}: step ms {times.ms[0]:.1f} (eager "
@@ -3549,7 +3555,7 @@ def request_distill(models, batch, counters, card: str) -> tuple:
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
-        marks = len(programs.CAPTURES), len(CAPTURE_RSS)
+        marks = now_ns(), len(CAPTURE_RSS)
         with no_sync_in_eager_runs():
             times, state, losses = run(quant_aware)
         torch.cuda.synchronize()
@@ -3579,7 +3585,7 @@ def request_distill(models, batch, counters, card: str) -> tuple:
                              peak_gib=peak / 2**30,
                              resident_gib=resident / 2**30,
                              launches_per_step=times.launches[-1],
-                             capture_s=captured[0][1],
+                             build_s=captured[0][1],
                              capture_rss_bytes=captured[0][2],
                              pool_bytes=pool)
         log(f"  request k, {name}: losses {[round(v, 5) for v in losses]}; "
@@ -3868,7 +3874,7 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
         placed = pinf.place_request(mesh, req_b["spk"], req_b["smask"],
                                     req_b["ids"], req_b["tmask"], noise)
         walls = {}
-        n_captures = len(programs.CAPTURES)
+        mark = now_ns()
         for form in ("eager", "miss", "replay"):
             fn = sample.eager if form == "eager" else sample
             _reset(counters)
@@ -3887,8 +3893,7 @@ def request_world1(req_b: dict, counters, card: str) -> tuple:
                                      "differ from request (b)'s")
             for k, v in got.items():
                 total[k] += v
-        captured = [c for c in programs.CAPTURES[n_captures:]
-                    if c[0] == "euler"]
+        captured = [c for c in builds_since(mark) if c[0] == "euler"]
         if len(captured) != 1:
             raise AssertionError(f"n: mesh sampler captures {captured}, want "
                                  "one")
@@ -3936,11 +3941,11 @@ def world1_collectives(mesh, owner, card: str) -> None:
     if not (rec["miss_bit_equal"] and rec["replay_bit_equal"]):
         raise AssertionError(f"n: the collectives' program differs from its "
                              f"body: {rec}")
-    if next(owner.parameters()).is_cuda and rec["captures"] != 1:
-        raise AssertionError(f"n: collectives' program captures {rec}, "
+    if next(owner.parameters()).is_cuda and rec["builds"] != 1:
+        raise AssertionError(f"n: collectives' program builds {rec}, "
                              "want one")
     log(f"  request n: all_reduce and all_gather_into_tensor over NCCL in "
-        f"a captured program (capture {rec['capture_s']:.4f} s): miss and "
+        f"a captured program (build {rec['build_s']:.4f} s): miss and "
         f"replay equal to the body's ({card})")
 
 
@@ -4391,8 +4396,9 @@ def main(argv) -> int:
     from echo_tts_torch.utils import programs
     log(f"programs: host RSS {host_rss()} bytes, grown "
         f"{sum(b - a for _, a, b in CAPTURE_RSS)} bytes over the captures")
-    log(f"programs: {len(programs.CAPTURES)} captured in "
-        f"{sum(s for _, s in programs.CAPTURES):.1f} s "
+    kept = programs.builds()
+    log(f"programs: {len(kept)} builds kept in the span ring, "
+        f"{sum(b.seconds for b in kept):.1f} s "
         f"({ {c.name: (c.misses, c.hits) for c in programs.caches()} } "
         f"misses, hits)")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,10 @@ Layer map (each module mirrors its namesake in echo_tts_tpu/):
              port's checkpoint bundles; the hub loader; the device-time
              profile of the main path and of a train step
   demo/      the demo's session and presets, gradio optional
-  utils/     StageTimer and trace() (torch.profiler)
+  utils/     the span recorder (server queue, gather and pass, the
+             batch pass's host stages, program builds), StageTimer
+             and trace() (torch.profiler over every thread, spans
+             beside it); captured programs (CUDA graphs)
 
 Entry points default to device="cuda" and raise without a CUDA device;
 pass device="cpu" to run the plain PyTorch path.  Nothing here imports JAX.

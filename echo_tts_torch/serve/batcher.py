@@ -14,6 +14,16 @@ pipeline.euler_sample_fn draws for a single request ((1, S, latent) in
 fp32), so a request starts from the same noise, bit for bit, batched or
 alone (the port's form of the JAX package's `_key_data` / `_draw_noise`,
 which reproduce PRNGKey(seed) host-side).
+
+A pass's host stages are spans (utils/profiling.py), children of the
+server's `server.pass` or roots when run_batch is called alone:
+`batch.text`, `batch.speaker`, `batch.noise`, `batch.sampler` (the host's
+enqueue of the captured sampler), `batch.decode` per decode slice (its
+`rows`; the slice's audio copied to the host inside it), `batch.to_host`
+(the slices' audio joined, the latents copied) and `batch.crop`.  The pass's shapes go on the innermost
+open span (`profiling.annotate`): `rows` with padding, `seq`, the text
+and speaker widths as launched, each row's real text and speaker
+lengths, and the decode batches, read from the host's masks.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from ..pipeline.pipeline import (EchoModels, ae_decode,
                                  get_speaker_latent_and_mask)
 from ..pipeline.text import get_text_input_ids_and_mask
 from ..sampler.euler import sample_euler_cfg_independent_guidances
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -113,63 +124,80 @@ def run_batch(
     ps = cfg.speaker_patch_size
     dev = models.device
 
-    text_ids, text_mask, normalized = get_text_input_ids_and_mask(
-        [r.text for r in requests], max_length=MAX_TEXT_LENGTH,
-        return_normalized_text=True)
+    with profiling.span("batch.text"):
+        text_ids, text_mask, normalized = get_text_input_ids_and_mask(
+            [r.text for r in requests], max_length=MAX_TEXT_LENGTH,
+            return_normalized_text=True)
 
     # speaker latents -> one common bucket
-    latents, masks = [], []
-    for r in requests:
-        if r.speaker_latent is not None:
-            if r.speaker_audio is not None:
-                raise ValueError(
-                    "pass speaker_audio OR speaker_latent, not both")
-            sl = np.asarray(r.speaker_latent, np.float32)
-            latents.append(sl)
-            masks.append(np.ones(sl.shape[:2], bool)
-                         if r.speaker_mask is None
-                         else np.asarray(r.speaker_mask, bool))
-        elif r.speaker_audio is None:
-            latents.append(np.zeros((1, ps, cfg.latent_size), np.float32))
-            masks.append(np.zeros((1, ps), bool))
-        else:
-            sl, sm = get_speaker_latent_and_mask(models, r.speaker_audio)
-            latents.append(sl)
-            masks.append(sm)
-    max_len = max(sl.shape[1] for sl in latents)
-    bucket = speaker_bucket or -(-max_len // ps) * ps
-    if any(sl.shape[1] > bucket for sl in latents):
-        raise ValueError(f"speaker_bucket {bucket} smaller than a "
-                         "reference in the batch")
-    spk_lat = np.zeros((b, bucket, cfg.latent_size), np.float32)
-    spk_mask = np.zeros((b, bucket), bool)
-    for i, (sl, sm) in enumerate(zip(latents, masks)):
-        spk_lat[i, :sl.shape[1]] = sl[0]
-        spk_mask[i, :sm.shape[1]] = sm[0]
+    with profiling.span("batch.speaker"):
+        latents, masks = [], []
+        for r in requests:
+            if r.speaker_latent is not None:
+                if r.speaker_audio is not None:
+                    raise ValueError(
+                        "pass speaker_audio OR speaker_latent, not both")
+                sl = np.asarray(r.speaker_latent, np.float32)
+                latents.append(sl)
+                masks.append(np.ones(sl.shape[:2], bool)
+                             if r.speaker_mask is None
+                             else np.asarray(r.speaker_mask, bool))
+            elif r.speaker_audio is None:
+                latents.append(np.zeros((1, ps, cfg.latent_size),
+                                        np.float32))
+                masks.append(np.zeros((1, ps), bool))
+            else:
+                sl, sm = get_speaker_latent_and_mask(models, r.speaker_audio)
+                latents.append(sl)
+                masks.append(sm)
+        max_len = max(sl.shape[1] for sl in latents)
+        bucket = speaker_bucket or -(-max_len // ps) * ps
+        if any(sl.shape[1] > bucket for sl in latents):
+            raise ValueError(f"speaker_bucket {bucket} smaller than a "
+                             "reference in the batch")
+        spk_lat = np.zeros((b, bucket, cfg.latent_size), np.float32)
+        spk_mask = np.zeros((b, bucket), bool)
+        for i, (sl, sm) in enumerate(zip(latents, masks)):
+            spk_lat[i, :sl.shape[1]] = sl[0]
+            spk_mask[i, :sm.shape[1]] = sm[0]
 
-    if initial_noise is None:
-        initial_noise = draw_noise([r.seed for r in requests], seq_len,
-                                   cfg.latent_size, dev)
-    elif tuple(initial_noise.shape) != (b, seq_len, cfg.latent_size):
-        raise ValueError(f"initial_noise {tuple(initial_noise.shape)} must "
-                         f"be {(b, seq_len, cfg.latent_size)}")
+    with profiling.span("batch.noise"):
+        if initial_noise is None:
+            initial_noise = draw_noise([r.seed for r in requests], seq_len,
+                                       cfg.latent_size, dev)
+        elif tuple(initial_noise.shape) != (b, seq_len, cfg.latent_size):
+            raise ValueError(f"initial_noise {tuple(initial_noise.shape)} "
+                             f"must be {(b, seq_len, cfg.latent_size)}")
 
-    latent_out = sample_euler_cfg_independent_guidances(
-        models.dit, torch.from_numpy(spk_lat).to(dev),
-        torch.from_numpy(spk_mask).to(dev), torch.from_numpy(text_ids).to(dev),
-        torch.from_numpy(text_mask).to(dev), sequence_length=seq_len,
-        dtype=models.dtype, initial_noise=initial_noise, **p)
+    slices = range(0, b, decode_batch)
+    profiling.annotate(
+        rows=b, seq=seq_len, text_width=int(text_mask.shape[1]),
+        speaker_width=bucket, text_lengths=text_mask.sum(1).tolist(),
+        speaker_lengths=spk_mask.sum(1).tolist(),
+        decode_batches=[min(decode_batch, b - i) for i in slices])
+    with profiling.span("batch.sampler"):
+        latent_out = sample_euler_cfg_independent_guidances(
+            models.dit, torch.from_numpy(spk_lat).to(dev),
+            torch.from_numpy(spk_mask).to(dev),
+            torch.from_numpy(text_ids).to(dev),
+            torch.from_numpy(text_mask).to(dev), sequence_length=seq_len,
+            dtype=models.dtype, initial_noise=initial_noise, **p)
 
-    audio = np.concatenate(
-        [ae_decode(models, latent_out[i:i + decode_batch]).cpu().numpy()
-         for i in range(0, b, decode_batch)], axis=0)
-    latents_host = latent_out.cpu().numpy()
+    audio = []
+    for i in slices:
+        with profiling.span("batch.decode", rows=min(decode_batch, b - i)):
+            audio.append(ae_decode(
+                models, latent_out[i:i + decode_batch]).cpu().numpy())
+    with profiling.span("batch.to_host"):
+        audio = np.concatenate(audio, axis=0)
+        latents_host = latent_out.cpu().numpy()
     spl = models.dac_cfg.frame_length
     results = []
-    for i, r in enumerate(requests):
-        cropped = dsp.crop_audio_to_flattening_point(
-            audio[i:i + 1], latents_host[i], samples_per_latent=spl)
-        results.append(BatchResult(audio=cropped,
-                                   normalized_text=normalized[i],
-                                   request_id=r.request_id))
+    with profiling.span("batch.crop"):
+        for i, r in enumerate(requests):
+            cropped = dsp.crop_audio_to_flattening_point(
+                audio[i:i + 1], latents_host[i], samples_per_latent=spl)
+            results.append(BatchResult(audio=cropped,
+                                       normalized_text=normalized[i],
+                                       request_id=r.request_id))
     return results

@@ -56,7 +56,7 @@ import numpy as np
 from ..config import SAMPLER_DEFAULTS
 from ..pipeline import audio_io, dsp
 from ..pipeline.pipeline import EchoModels, euler_sample_fn, sample_pipeline
-from ..utils.profiling import StageTimer
+from ..utils import profiling
 from . import metrics
 from . import models as models_mod
 from .config import (AUDIO_EXTENSIONS, ServeConfig, device_info, load_config,
@@ -214,7 +214,7 @@ def synthesize(job_input: Dict, cfg: Optional[ServeConfig] = None,
     if job_input.get("session_id") is not None:
         sanitize_component(job_input["session_id"], "session_id")
     t_start = time.time()
-    timer = StageTimer()
+    timer = profiling.StageTimer()
     cfg = cfg or load_config()
 
     text = job_input.get("text")
@@ -596,8 +596,9 @@ def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
     constants request validation uses: by default the high-traffic subset,
     `full` the whole accepted surface, `batch_sizes` the micro-batch
     server's buckets.  Returns one record per step: the entry, its
-    seconds, the seconds of each program it captured, and the shared
-    pool's and the programs' static inputs' bytes after it."""
+    seconds, the seconds of each program it built (`builds`: the eager
+    run and the capture, utils/programs.builds), and the shared pool's
+    and the programs' static inputs' bytes after it."""
     from ..ops import cuda_build
     from ..pipeline.pipeline import get_speaker_latent_and_mask
     from ..utils import programs
@@ -618,17 +619,17 @@ def warmup_compile(models: EchoModels, parameters: Optional[Dict] = None,
     report = []
 
     def step(entry, fn):
-        t0, n0 = time.time(), len(programs.CAPTURES)
+        t0, mark = time.time(), profiling.now_ns()
         fn()
-        captured = [round(s, 3) for _, s in programs.CAPTURES[n0:]]
+        built = [round(b.seconds, 3) for b in programs.builds(mark)]
         report.append({"entry": entry, "seconds": time.time() - t0,
-                       "captures": captured,
+                       "builds": built,
                        "pool_bytes": programs.pool_bytes(models.device),
                        "static_bytes": programs.static_bytes(models.device)})
-        log.info("warmup %d/%d %s: %.1fs, %d programs captured %s, pool "
+        log.info("warmup %d/%d %s: %.1fs, %d programs built %s, pool "
                  "%d bytes, static inputs %d bytes", len(report),
                  len(manifest) + 1, entry, report[-1]["seconds"],
-                 len(captured), captured, report[-1]["pool_bytes"],
+                 len(built), built, report[-1]["pool_bytes"],
                  report[-1]["static_bytes"])
 
     t_all = time.time()

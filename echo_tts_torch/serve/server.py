@@ -31,8 +31,16 @@ reference: handler.py:797-803):
     cancels everything still queued instead (futures -> CancelledError).
   * OBSERVABILITY: `stats()` exposes queue depth / in-flight / totals
     (surfaced by serve.handler.health_check), the serve.metrics registry
-    tracks batch occupancy and queue depth, and a rate-limited warning
-    logs when the queue backs up.
+    tracks batch occupancy, queue depth and each request's queue wait,
+    and a rate-limited warning logs when the queue backs up.
+  * SPANS (utils/profiling.py), on the executor thread: `server.wait`
+    (blocked on an empty queue), `server.gather` (first item to the
+    batch's close: `rows`, `ended` "timeout", "max_batch" or "stop"),
+    `server.pass` (dispatch to resolved futures: `bucket`, `live`,
+    `requests`; run_batch adds its shapes and its stage spans), and
+    inside it `server.device_lock` and `server.resolve`.  Each request
+    gets a `server.queue` span from submit to its dispatch, or to its
+    expiry or cancellation (`outcome`), with its `request` id.
 
 Every group is padded to a batch-size bucket (presets.batch_size_buckets,
 as the JAX server pads it): each distinct batch size is its own captured
@@ -53,6 +61,7 @@ from concurrent.futures import Future
 from typing import Dict, List, Optional
 
 from ..pipeline.pipeline import EchoModels
+from ..utils import profiling
 from . import metrics
 from .batcher import BatchRequest, BatchResult, group_compatible, run_batch
 from .presets import pick_batch_bucket
@@ -76,6 +85,8 @@ class _Item:
     future: Future
     enqueue_t: float
     deadline_s: Optional[float]
+    enqueue_ns: int             # profiling.now_ns at submit
+    thread: int                 # the submitting thread's native id
 
     def remaining(self, now: float) -> Optional[float]:
         if self.deadline_s is None:
@@ -141,7 +152,9 @@ class MicroBatchServer:
                          params=dict(sampler_params or {}), future=fut,
                          enqueue_t=time.monotonic(),
                          deadline_s=(self.deadline_s if deadline_s is None
-                                     else deadline_s))
+                                     else deadline_s),
+                         enqueue_ns=profiling.now_ns(),
+                         thread=threading.get_native_id())
             try:
                 self._q.put_nowait(item)
             except queue.Full:
@@ -188,6 +201,7 @@ class MicroBatchServer:
                     except queue.Empty:
                         break
                     if item is not None and item.future.cancel():
+                        self._queued(item, profiling.now_ns(), "cancelled")
                         with self._stats_lock:
                             self._cancelled += 1
             self._q.put(None)  # wake the loop
@@ -210,26 +224,40 @@ class MicroBatchServer:
                     "(long stream holding device_lock, or a wedged "
                     "device call)", depth, self.max_queue)
 
+    @staticmethod
+    def _queued(it: _Item, end_ns: int, outcome: str) -> None:
+        """The request's `server.queue` span: submit to end_ns."""
+        profiling.record("server.queue", it.enqueue_ns, end_ns,
+                         thread=it.thread, request=it.request.request_id,
+                         outcome=outcome)
+
     def _drain(self) -> List[_Item]:
         """Block for one item, then opportunistically gather more for up to
         max_wait_s (or until max_batch)."""
-        first = self._q.get()
+        with profiling.span("server.wait"):
+            first = self._q.get()
         if first is None:
             return []
         items = [first]
-        while len(items) < self.max_batch:
-            try:
-                nxt = self._q.get(timeout=self.max_wait_s)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._q.put(None)  # re-signal stop after this batch
-                break
-            items.append(nxt)
+        with profiling.span("server.gather") as gather:
+            ended = "max_batch"
+            while len(items) < self.max_batch:
+                try:
+                    nxt = self._q.get(timeout=self.max_wait_s)
+                except queue.Empty:
+                    ended = "timeout"
+                    break
+                if nxt is None:
+                    self._q.put(None)  # re-signal stop after this batch
+                    ended = "stop"
+                    break
+                items.append(nxt)
+            gather.attrs.update(rows=len(items), ended=ended)
         return items
 
-    def _run_group(self, group: List[_Item]) -> None:
-        now = time.monotonic()
+    def _run_group(self, group: List[_Item],
+                   pass_span: profiling.Span) -> None:
+        now, now_ns = time.monotonic(), pass_span.start_ns
         live: List[_Item] = []
         for it in group:
             rem = it.remaining(now)
@@ -242,6 +270,7 @@ class MicroBatchServer:
                         f"(deadline {it.deadline_s}s)"))
                 with self._stats_lock:
                     self._expired += 1
+                self._queued(it, now_ns, "expired")
                 continue
             # cancellation point: a future cancelled before dispatch is
             # dropped from the batch (after this call it can no longer
@@ -249,9 +278,14 @@ class MicroBatchServer:
             if not it.future.set_running_or_notify_cancel():
                 with self._stats_lock:
                     self._cancelled += 1
+                self._queued(it, now_ns, "cancelled")
                 continue
             live.append(it)
+            self._queued(it, now_ns, "dispatched")
+            metrics.histogram("queue_wait_seconds").observe(
+                (now_ns - it.enqueue_ns) / 1e9)
         if not live:
+            pass_span.attrs.update(bucket=0, live=0, requests=[])
             return
 
         # Watchdog for the in-flight batch: if the device call outlives
@@ -296,16 +330,23 @@ class MicroBatchServer:
             # own seed, so the real requests' audio is the unpadded pass's
             reqs = [it.request for it in live]
             bucket = pick_batch_bucket(len(reqs), self.max_batch)
+            pass_span.attrs.update(bucket=bucket, live=len(reqs),
+                                   requests=[r.request_id for r in reqs])
             padded = reqs + [reqs[-1]] * (bucket - len(reqs))
-            with self.device_lock:
+            with profiling.span("server.device_lock"):
+                self.device_lock.acquire()
+            try:
                 results = run_batch(
                     self.models, padded, live[0].params,
                     speaker_bucket=self.speaker_bucket)[:len(reqs)]
+            finally:
+                self.device_lock.release()
             done = 0
-            for it, res in zip(live, results):
-                if not it.future.done():  # watchdog may have expired it
-                    it.future.set_result(res)
-                    done += 1
+            with profiling.span("server.resolve"):
+                for it, res in zip(live, results):
+                    if not it.future.done():  # watchdog may have expired it
+                        it.future.set_result(res)
+                        done += 1
             with self._stats_lock:
                 self._completed += done
                 self._batches += 1
@@ -335,4 +376,5 @@ class MicroBatchServer:
             groups = group_compatible(
                 [(it.request, it.params) for it in items], self.max_batch)
             for idx_group in groups:
-                self._run_group([items[i] for i in idx_group])
+                with profiling.span("server.pass") as pass_span:
+                    self._run_group([items[i] for i in idx_group], pass_span)

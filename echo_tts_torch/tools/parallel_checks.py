@@ -45,7 +45,8 @@ the eager body's result bit for bit on the same rank (for the steps:
 loss, parameters, AdamW moments and EMA after each step, from identical
 states).  Each rank reports host-clock wall milliseconds between
 synchronises of the eager, the missed and the replayed calls, its
-captures' seconds and the graph pool's bytes.  At the end every rank
+programs' build seconds (the eager run and the capture,
+utils/programs.builds) and the graph pool's bytes.  At the end every rank
 leaves the world through parallel.distributed.shutdown (the mesh
 programs, then the process group) and says so.
 
@@ -94,7 +95,7 @@ from ..sampler.euler import (make_cfg_branch_masks,
                              sample_euler_cfg_independent_guidances)
 from ..train import distill as tdistill
 from ..train import step as tstep
-from ..utils import programs
+from ..utils import profiling, programs
 
 TEXTS = ("The quick brown fox jumps over the lazy dog, then reads it a "
          "bedtime story.", "Good morning, and welcome to the station.")
@@ -174,9 +175,9 @@ def program_check(eager_fn, program_fn, device) -> tuple:
     program_fn() three times: its miss (the eager run and the capture) and
     two replays.  Returns (the last replay's result, the record: wall ms
     of each call, whether the miss and the replays are the eager result
-    bit for bit, the captures' seconds and the pool's bytes after)."""
+    bit for bit, the builds' seconds and the pool's bytes after)."""
     want, eager_ms = wall_ms(eager_fn)
-    n = len(programs.CAPTURES)
+    mark = profiling.now_ns()
     got, miss_ms = wall_ms(program_fn)
     rec = dict(eager_ms=eager_ms, miss_ms=miss_ms, replay_ms=[],
                miss_bit_equal=same(got, want))
@@ -186,10 +187,9 @@ def program_check(eager_fn, program_fn, device) -> tuple:
         got, ms = wall_ms(program_fn)
         rec["replay_ms"].append(ms)
         equal = equal and same(got, want)
-    captured = programs.CAPTURES[n:]
+    built = programs.builds(mark)
     rec.update(launches=launches(), replay_bit_equal=equal,
-               captures=len(captured),
-               capture_s=sum(sec for _, sec in captured),
+               builds=len(built), build_s=sum(b.seconds for b in built),
                pool_bytes=programs.pool_bytes(device))
     return got, rec
 
@@ -273,7 +273,7 @@ def collectives_check(mesh, owner, seed: int = 70) -> dict:
     whose body runs dist.all_reduce and then dist.all_gather_into_tensor
     on the world group: its miss and then a replay, each on new inputs,
     against the body run eagerly on the same inputs (miss_bit_equal,
-    replay_bit_equal), and the capture's seconds."""
+    replay_bit_equal), and the build's seconds."""
     world = dist.get_world_size()
 
     def body(_, x):
@@ -286,7 +286,7 @@ def collectives_check(mesh, owner, seed: int = 70) -> dict:
     cache = programs.ProgramCache("collectives", 1)
     dev = next(owner.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed + dist.get_rank())
-    n_captures = len(programs.CAPTURES)
+    mark = profiling.now_ns()
     rec = {}
     try:
         for name in ("miss_bit_equal", "replay_bit_equal"):
@@ -297,9 +297,9 @@ def collectives_check(mesh, owner, seed: int = 70) -> dict:
     finally:
         cache.clear()
         programs._CACHES.remove(cache)
-    captured = programs.CAPTURES[n_captures:]
-    return dict(rec, captures=len(captured),
-                capture_s=sum(sec for _, sec in captured))
+    built = programs.builds(mark)
+    return dict(rec, builds=len(built),
+                build_s=sum(b.seconds for b in built))
 
 
 def sp_check(model, mesh, seed: int = 8, eager: bool = False) -> dict:
@@ -470,7 +470,7 @@ def _mesh_step_check(model, refs: dict, loss_ref, mesh, make_state, call,
     parameters, EMA and moments bit for bit (miss_bit_equal,
     replay_bit_equal), with the wall ms of each."""
     state = make_state()
-    n_captures = len(programs.CAPTURES)
+    mark = profiling.now_ns()
     reset_launches()
     (_, loss), ms = wall_ms(lambda: call(step.eager if eager else step,
                                          state))
@@ -493,11 +493,10 @@ def _mesh_step_check(model, refs: dict, loss_ref, mesh, make_state, call,
     (_, loss), out["replay_ms"] = wall_ms(lambda: call(step, state))
     (_, want), eager_ms = wall_ms(lambda: call(step.eager, twin))
     out["eager_ms"].append(eager_ms)
-    captured = programs.CAPTURES[n_captures:]
+    built = programs.builds(mark)
     out.update(replay_bit_equal=same(loss, want)
                and same(state_tensors(state), state_tensors(twin)),
-               captures=len(captured),
-               capture_s=sum(sec for _, sec in captured),
+               builds=len(built), build_s=sum(b.seconds for b in built),
                pool_bytes=programs.pool_bytes(loss.device))
     return out
 
@@ -682,14 +681,14 @@ TIMED = ("sp4", "tp4_sample", "tp4_w8a8_sample", "dp2tp2_sample",
 
 def times_line(rank: int, res: dict) -> str:
     """One rank's host-clock wall ms, eager against replayed, and its
-    captures, for print."""
+    program builds, for print."""
     parts = []
     for key in TIMED:
         r = res[key]
         parts.append(
             f"{key} eager {_ms(r['eager_ms'])} miss {r['miss_ms']:.1f} "
-            f"replayed {_ms(r['replay_ms'])} ({r['captures']} captures, "
-            f"{r['capture_s']:.2f} s)")
+            f"replayed {_ms(r['replay_ms'])} ({r['builds']} builds, "
+            f"{r['build_s']:.2f} s)")
     return (f"rank {rank}: " + "; ".join(parts) + f"; pool "
             f"{res['dp2tp2_distill']['pool_bytes'] / 2**30:.2f} GiB after")
 

@@ -4,29 +4,169 @@ Counterpart of echo_tts_tpu/utils/profiling.py.  The reference has
 wall-clock phase timers only (handler.py:342-409, gradio_app.py:203,
 284-285).  Here:
 
+  * the span recorder: `span(name, **attrs)` around a piece of host work,
+    kept in a bounded in-memory ring that `spans()` copies out.  It is
+    always on, at request and pass-stage granularity (serve/server.py's
+    queue, gather and pass, serve/batcher.py's host stages,
+    utils/programs.py's builds), and it is the one record of them: the
+    benchmark's per-layer readers, the warm-up report, StageTimer and
+    trace() all read it;
   * StageTimer: accumulating per-stage wall timing (voice encode /
     synthesis / host DSP / upload) with a structured report, the RTF
-    bookkeeping of the serving envelope (copied as it is);
-  * trace(): a context manager around torch.profiler that writes a Chrome
-    trace (chrome://tracing, Perfetto) of the host and, on a card, the
-    device, in place of jax.profiler;
+    bookkeeping of the serving envelope; each stage is a span;
+  * trace(): a context manager around torch.profiler, over every thread,
+    that writes a Chrome trace (chrome://tracing, Perfetto) of the host
+    and, on a card, the device, with the recorder's spans of its window
+    beside them, in place of jax.profiler;
   * the timers of the card's work that chip_smoke.py, the tools and the
     bench modules (examples/bench_*.py) share: `wall_ms` (a stage on the
     host clock between two synchronises), `device_ms` (CUDA events around
     back-to-back calls), `timed` (torch.profiler's sum of a call's device
     intervals), `host_us_paired`, and `bound` with the H100's published
     peaks.
+
+The spans' clock.  Stamps are Unix-epoch nanoseconds (`now_ns`,
+time.time_ns), the timebase torch.profiler converts its host and device
+events to, so that a span and an interval of a profiler trace compare
+directly (tests/test_torch_spans.py holds the two within a millisecond).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+# the spans' clock (module docstring)
+now_ns = time.time_ns
+
+# spans the ring keeps; about 20 a server pass
+RING_SPANS = 1 << 16
+
+
+class Span:
+    """One span: its name, start and end (now_ns), its own id, its
+    parent's (the span open on the same thread when it began), the
+    thread's native id and its attributes.  As a context manager it
+    times its body on the calling thread; a span whose body raised
+    carries the exception's type under `error`."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "thread",
+                 "attrs", "_recorder")
+
+    def __init__(self, recorder: "SpanRecorder", name: str, attrs: dict,
+                 start_ns: int = 0, end_ns: int = 0,
+                 parent: Optional[int] = None, thread: int = 0):
+        self._recorder = recorder
+        self.name, self.attrs = name, attrs
+        self.start_ns, self.end_ns = start_ns, end_ns
+        self.id = next(recorder._ids)
+        self.parent, self.thread = parent, thread
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def __enter__(self) -> "Span":
+        stack, self.thread = self._recorder._open()
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        self.start_ns = now_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.end_ns = now_ns()
+        if exc_type is not None:
+            self.attrs["error"] = exc_type.__name__
+        stack, _ = self._recorder._open()
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:
+            stack.remove(self)
+        self._recorder._keep(self)
+        return False
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, {self.start_ns}..{self.end_ns}, "
+                f"id={self.id}, parent={self.parent}, thread={self.thread}, "
+                f"{self.attrs})")
+
+
+class SpanRecorder:
+    """The spans of a process, the last `capacity` kept (thread-safe).
+    Nothing is written anywhere: `spans()` copies them out."""
+
+    def __init__(self, capacity: int = RING_SPANS):
+        self._ring: "collections.deque[Span]" = collections.deque(
+            maxlen=capacity)
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def _open(self):
+        """(this thread's stack of open spans, its native id)."""
+        local = self._local
+        try:
+            return local.stack, local.thread
+        except AttributeError:
+            local.stack, local.thread = [], threading.get_native_id()
+            return local.stack, local.thread
+
+    def _keep(self, s: Span) -> None:
+        with self._lock:
+            self._ring.append(s)
+
+    def span(self, name: str, **attrs) -> Span:
+        """A span of the body of a `with` on this thread."""
+        return Span(self, name, attrs)
+
+    def record(self, name: str, start_ns: int, end_ns: int, *,
+               thread: Optional[int] = None, **attrs) -> Span:
+        """A span whose times were taken elsewhere (a request's wait in a
+        queue, from its submit on a caller's thread), kept as it is:
+        a root, on `thread` (default: this one)."""
+        s = Span(self, name, attrs, start_ns, end_ns, None,
+                 self._open()[1] if thread is None else thread)
+        self._keep(s)
+        return s
+
+    def current(self) -> Optional[Span]:
+        """The innermost span open on this thread, or None."""
+        stack, _ = self._open()
+        return stack[-1] if stack else None
+
+    def annotate(self, **attrs) -> None:
+        """Add attributes to the innermost span open on this thread; a
+        no-op when none is open."""
+        s = self.current()
+        if s is not None:
+            s.attrs.update(attrs)
+
+    def spans(self, since_ns: Optional[int] = None) -> List[Span]:
+        """A copy of the kept spans, in the order they ended; with
+        since_ns, those that ended at or after it."""
+        with self._lock:
+            out = list(self._ring)
+        if since_ns is not None:
+            out = [s for s in out if s.end_ns >= since_ns]
+        return out
+
+
+RECORDER = SpanRecorder()
+span = RECORDER.span
+record = RECORDER.record
+current = RECORDER.current
+annotate = RECORDER.annotate
+spans = RECORDER.spans
 
 
 class StageTimer:
-    """Accumulating wall-clock stage timer.
+    """Accumulating wall-clock stage timer; each stage is a span of its
+    name.
 
     with timer.stage("synthesis"):
         ...
@@ -38,11 +178,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
+        s = span(name)
         try:
-            yield
+            with s:
+                yield
         finally:
-            self._acc.setdefault(name, []).append(time.perf_counter() - t0)
+            self._acc.setdefault(name, []).append(s.seconds)
 
     def report(self) -> Dict[str, Dict[str, float]]:
         return {
@@ -61,10 +202,13 @@ class StageTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: str = "echo_tts_trace"):
-    """Profile the body with torch.profiler and write its Chrome trace to
-    `log_dir`/trace.json; yields that path.  CUDA activity is recorded
-    when a card is present."""
+    """Profile the body with torch.profiler, on every thread of the
+    process, and write its Chrome trace to `log_dir`/trace.json with the
+    recorder's spans of the window added (category "span", on their
+    threads, in the trace's timebase); yields that path.  CUDA activity
+    is recorded when a card is present."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -72,11 +216,33 @@ def trace(log_dir: str = "echo_tts_trace"):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
+        t0 = now_ns()
         yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        t1 = now_ns()
     prof.export_chrome_trace(path)
+    _add_spans(path, [s for s in spans(since_ns=t0) if s.start_ns <= t1])
+
+
+def _add_spans(path: str, kept: List[Span]) -> None:
+    """Write spans into the Chrome trace at `path` as complete events.
+    The trace's `ts` is microseconds after its `baseTimeNanoseconds`
+    (Unix-epoch nanoseconds, the spans' clock)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    doc.setdefault("traceEvents", []).extend(
+        {"ph": "X", "cat": "span", "name": s.name, "pid": pid,
+         "tid": s.thread, "ts": (s.start_ns - base) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": dict(s.attrs, id=s.id, parent=s.parent)}
+        for s in kept)
+    with open(path, "w") as f:
+        json.dump(doc, f, default=str)
 
 
 # ---------------------------------------------------------------------------

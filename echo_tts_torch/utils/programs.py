@@ -33,7 +33,9 @@ A call, `cache(key, owner, inputs, make_body)`:
     shared-memory attributes set, every cached table the body reads is
     made) and its result answers the call.  Then, on a card, the body is
     captured with `torch.cuda.graph` into one memory pool that every
-    program of the process shares; capture runs no kernel;
+    program of the process shares; capture runs no kernel.  The miss is
+    a `program.build` span (utils/profiling.py), its capture a
+    `program.capture` span inside it (`builds` reads them);
   * on a hit, copies the inputs into the static buffers with `copy_`,
     replays the graph and returns a clone of the static output: the next
     replay overwrites the static output, and a caller may still hold it
@@ -136,18 +138,18 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
-import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from . import profiling
 
 _COUNTERS: List[Tuple[object, str]] = []   # the kernel wrappers' launch counts
 _CACHES: List["ProgramCache"] = []
 _POOLS: Dict[int, list] = {}   # device index -> [pool handle, live graphs]
 _LOCK = threading.RLock()
 _LOCAL = threading.local()                  # .held: the programs being built
-CAPTURES: List[Tuple[str, float]] = []      # (cache name, capture seconds)
 
 
 def register_counters(owner: object, *attrs: str) -> None:
@@ -284,39 +286,39 @@ class Program:
         self.static_out = None
         self.launches: List[Tuple[int, int]] = []
         self.held: Dict[int, object] = {}
-        self.capture_s = 0.0
 
     def _call_body(self, owner):
         with _holding(self.held):
             return self.body(owner, *_unflatten(self.spec, self.static_in))
 
     def capture(self, owner, device: torch.device, name: str) -> None:
+        """The capture, a `program.capture` span (inside its miss's
+        `program.build`)."""
         snapshot = list(_COUNTERS)
         before = [getattr(o, a) for o, a in snapshot]
         graph = torch.cuda.CUDAGraph()
         pool, idx = _pool(device), _device_index(device)
-        t0 = time.perf_counter()
-        captured = False
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    graph, pool=pool[0], capture_error_mode=_capture_mode()):
-                out = self._call_body(owner)
-            captured = True
-        finally:
-            after = [getattr(o, a) for o, a in snapshot]
-            for (o, a), n in zip(snapshot, before):
-                setattr(o, a, n)
-            if not captured and pool[1] == 0 and _POOLS.get(idx) is pool:
-                del _POOLS[idx]             # retired with the failed graph
-        pool[1] += 1
-        weakref.finalize(self, _graph_freed, idx, pool)
-        torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
+        with profiling.span("program.capture", cache=name):
+            captured = False
+            try:
+                with torch.cuda.device(device), torch.cuda.graph(
+                        graph, pool=pool[0],
+                        capture_error_mode=_capture_mode()):
+                    out = self._call_body(owner)
+                captured = True
+            finally:
+                after = [getattr(o, a) for o, a in snapshot]
+                for (o, a), n in zip(snapshot, before):
+                    setattr(o, a, n)
+                if not captured and pool[1] == 0 and _POOLS.get(idx) is pool:
+                    del _POOLS[idx]             # retired with the failed graph
+            pool[1] += 1
+            weakref.finalize(self, _graph_freed, idx, pool)
+            torch.cuda.synchronize(device)
         self.graph, self.static_out = graph, out
         self.launches = [(_COUNTERS.index(c), n1 - n0)
                          for c, n0, n1 in zip(snapshot, before, after)
                          if n1 != n0]
-        CAPTURES.append((name, self.capture_s))
 
     def run(self, owner, leaves: list):
         for s, x in zip(self.static_in, leaves):
@@ -424,12 +426,13 @@ class ProgramCache:
             if scope is not None:
                 scope.check(device)
             self.misses += 1
-            prog = Program(owners, make_body(), spec,
-                           [self._static(i, x) for i, x in enumerate(leaves)],
-                           scope)
-            out = _clone_tree(prog._call_body(owner))   # the eager miss run
-            if device.type == "cuda":
-                prog.capture(owner, device, self.name)
+            with profiling.span("program.build", cache=self.name, key=key):
+                prog = Program(owners, make_body(), spec,
+                               [self._static(i, x)
+                                for i, x in enumerate(leaves)], scope)
+                out = _clone_tree(prog._call_body(owner))  # the eager run
+                if device.type == "cuda":
+                    prog.capture(owner, device, self.name)
             self.entries[full] = prog
             self.entries.move_to_end(full)
             for o in owners:
@@ -443,6 +446,14 @@ class ProgramCache:
 
 def caches() -> List[ProgramCache]:
     return list(_CACHES)
+
+
+def builds(since_ns: int = 0) -> List[profiling.Span]:
+    """The `program.build` spans (a miss: its eager run, and on a card its
+    capture) that ended at or after since_ns (profiling.now_ns), oldest
+    first.  `.attrs["cache"]` names the cache, `.seconds` the build."""
+    return [s for s in profiling.spans(since_ns)
+            if s.name == "program.build"]
 
 
 def purge() -> None:

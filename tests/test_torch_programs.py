@@ -8,8 +8,8 @@ cores on the same tiny fp32 weights, at the sampler tests' 1e-4 / 1e-3
 and the codec tests' 2e-5 / 1e-4; a replayed call bit for bit its miss
 run; no aliasing of a program's output; the JAX core's key fields each
 separating programs; the micro-batch server's padded batch against the
-unpadded rows; and warmup_compile leaving exactly its manifest's
-programs.
+unpadded rows; warmup_compile leaving exactly its manifest's
+programs; and a miss recorded as one build span, a hit as none.
 """
 import dataclasses
 
@@ -31,7 +31,7 @@ from echo_tts_torch.serve import handler as th
 from echo_tts_torch.serve.batcher import BatchRequest, run_batch
 from echo_tts_torch.serve.server import MicroBatchServer
 from echo_tts_torch.tools import bridge
-from echo_tts_torch.utils import programs
+from echo_tts_torch.utils import profiling, programs
 
 torch.set_num_threads(1)
 DIT_CFG, DAC_CFG = tiny_dit_config(), tiny_dac_config()
@@ -311,3 +311,30 @@ def test_stage_programs_match_the_serving_sampler(pair):
     want = _core(port.dit)(spk, smask, ids, tmask, noise)
     np.testing.assert_allclose(lat.numpy(), want.numpy(), atol=1e-6, rtol=0)
     assert (stages.STAGE_PROGRAMS.misses, stages.STAGE_PROGRAMS.hits) == (2, 2)
+
+
+def test_a_miss_records_one_build_span_and_a_hit_none(pair):
+    """A miss is one `program.build` span, named by its cache and key (its
+    eager run, and on a card its capture as a `program.capture` child);
+    a hit records none."""
+    _, port = pair
+    cache = programs.ProgramCache("test-spans", 2)
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    try:
+        mark = profiling.now_ns()
+        cache(("k",), port.dit, [torch.ones(3, device=dev)],
+              lambda: (lambda owner, x: x * 2.0))
+        (build,) = programs.builds(mark)
+        assert build.attrs == {"cache": "test-spans", "key": ("k",)}
+        captures = [s for s in profiling.spans(mark)
+                    if s.name == "program.capture"]
+        assert [c.parent for c in captures] == ([build.id] if dev == "cuda"
+                                                else [])
+        mark = profiling.now_ns()
+        cache(("k",), port.dit, [torch.ones(3, device=dev)],
+              lambda: (lambda owner, x: x * 2.0))
+        assert cache.hits == 1 and programs.builds(mark) == []
+        assert not [s for s in profiling.spans(mark)
+                    if s.name.startswith("program.")]
+    finally:
+        programs._CACHES.remove(cache)

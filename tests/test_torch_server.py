@@ -3,7 +3,9 @@ futures, error propagation and shutdown, and the hardening surface
 (bounded queue, deadlines with the in-flight watchdog, cancellation,
 drainless shutdown, stats), mirroring tests/test_server.py over a fake
 run_batch, so that no model runs; a group is padded to its batch bucket
-(presets.pick_batch_bucket), as the JAX server pads it."""
+(presets.pick_batch_bucket), as the JAX server pads it.  Last, the
+server's spans (utils/profiling.py): the queue, the gather and the pass.
+"""
 import os
 import sys
 import threading
@@ -12,9 +14,11 @@ import time
 import numpy as np
 import pytest
 
+from echo_tts_torch.serve import metrics
 from echo_tts_torch.serve import server as srv_mod
 from echo_tts_torch.serve.batcher import BatchRequest, BatchResult
 from echo_tts_torch.serve.server import MicroBatchServer, QueueFullError
+from echo_tts_torch.utils import profiling
 
 FAST = {"num_steps": 2, "sequence_length": 8}
 MODELS = object()  # the fake run_batch never reads the models
@@ -298,3 +302,117 @@ def test_stats_shape(server):
     assert s["queue_depth"] == 0 and not s["shutdown"]
     assert s["batches"] >= 1 and s["mean_occupancy"] >= 1.0
     assert s["in_flight"] == 0 and s["failed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+def test_server_spans_nest_and_order():
+    """Each request's `server.queue` span runs from its submit, on the
+    submitting thread, to its pass's dispatch (the `server.pass` span's
+    start), with its id; on the executor thread `server.wait`,
+    `server.gather` and `server.pass` follow one another, the pass holding
+    `server.device_lock` then `server.resolve`; `queue_wait_seconds`
+    observes each dispatched request."""
+    waits = metrics.histogram("queue_wait_seconds")
+    n0, mark = waits.count, profiling.now_ns()
+    srv = MicroBatchServer(MODELS, max_batch=4, max_wait_s=0.2)
+    try:
+        futs = [srv.submit(BatchRequest(f"Span {i}.", seed=i,
+                                        request_id=f"r{i}"), FAST)
+                for i in range(3)]
+        for f in futs:
+            f.result(timeout=30)
+    finally:
+        srv.shutdown()
+    got = profiling.spans(mark)
+    queued = {s.attrs["request"]: s for s in got if s.name == "server.queue"}
+    (pass_,) = [s for s in got if s.name == "server.pass"]
+    assert pass_.attrs["requests"] == ["r0", "r1", "r2"]
+    assert (pass_.attrs["live"], pass_.attrs["bucket"]) == (3, 4)
+    me = threading.get_native_id()
+    for rid, q in queued.items():
+        assert q.attrs["outcome"] == "dispatched" and q.thread == me
+        assert q.end_ns == pass_.start_ns and q.start_ns <= q.end_ns
+    assert sorted(queued) == ["r0", "r1", "r2"]
+    assert waits.count - n0 == 3
+    executor = [s for s in got if s.thread == pass_.thread]
+    roots = [s for s in executor if s.parent is None]
+    roots.sort(key=lambda s: s.start_ns)
+    # the last wait is the one shutdown ends
+    assert [s.name for s in roots] == ["server.wait", "server.gather",
+                                       "server.pass", "server.wait"]
+    assert roots[1].attrs == {"rows": 3, "ended": "timeout"}
+    for a, b in zip(roots, roots[1:]):
+        assert a.end_ns <= b.start_ns
+    inner = sorted((s for s in executor if s.parent == pass_.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in inner] == ["server.device_lock",
+                                       "server.resolve"]
+    assert all(pass_.start_ns <= s.start_ns <= s.end_ns <= pass_.end_ns
+               for s in inner)
+
+
+def test_gather_ends_at_max_batch():
+    srv = MicroBatchServer(MODELS, max_batch=2, max_wait_s=5.0)
+    mark = profiling.now_ns()
+    try:
+        futs = [srv.submit(BatchRequest(f"Full {i}.", seed=i), FAST)
+                for i in range(2)]
+        for f in futs:
+            f.result(timeout=30)
+    finally:
+        srv.shutdown()
+    gathers = [s for s in profiling.spans(mark) if s.name == "server.gather"]
+    assert [s.attrs for s in gathers] == [{"rows": 2, "ended": "max_batch"}]
+
+
+def test_expired_and_cancelled_requests_carry_their_outcome(monkeypatch):
+    """A request that expires in the queue and one cancelled before its
+    dispatch each get a `server.queue` span ending at the dispatch that
+    dropped it, with the outcome; one cancelled by a drainless shutdown
+    gets its span too."""
+    wedge = _Wedge(srv_mod.run_batch)
+    monkeypatch.setattr(srv_mod, "run_batch", wedge)
+    srv = MicroBatchServer(MODELS, max_batch=4, max_wait_s=0.01)
+    mark = profiling.now_ns()
+    try:
+        first = srv.submit(BatchRequest("Wedge.", seed=0, request_id="w"),
+                           FAST)
+        assert wedge.entered.wait(timeout=30)
+        late = srv.submit(BatchRequest("Too late.", seed=1,
+                                       request_id="late"), FAST,
+                          deadline_s=0.05)
+        gone = srv.submit(BatchRequest("Changed my mind.", seed=2,
+                                       request_id="gone"), FAST)
+        assert gone.cancel()
+        time.sleep(0.2)
+        wedge.release.set()
+        assert first.result(timeout=30).audio.ndim == 2
+        with pytest.raises(TimeoutError):
+            late.result(timeout=30)
+        wedge.release.clear()
+        wedge.entered.clear()
+        second = srv.submit(BatchRequest("Wedge again.", seed=3), FAST)
+        assert wedge.entered.wait(timeout=30)
+        dropped = srv.submit(BatchRequest("Never runs.", seed=4,
+                                          request_id="dropped"), FAST)
+        srv.shutdown(wait=False, drain=False)
+        assert dropped.cancelled()
+        wedge.release.set()
+        assert second.result(timeout=30).audio.ndim == 2
+    finally:
+        wedge.release.set()
+        srv.shutdown()
+    got = profiling.spans(mark)
+    outcome = {s.attrs["request"]: s.attrs["outcome"] for s in got
+               if s.name == "server.queue"}
+    assert {k: outcome[k] for k in ("w", "late", "gone", "dropped")} == {
+        "w": "dispatched", "late": "expired", "gone": "cancelled",
+        "dropped": "cancelled"}
+    passes = [s for s in got if s.name == "server.pass"]
+    dropping = next(p for p in passes if p.attrs["live"] == 0)
+    assert all(s.end_ns == dropping.start_ns for s in got
+               if s.name == "server.queue"
+               and s.attrs["request"] in ("late", "gone"))
