@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. device: CUDA must be present; prints the card's name and power limit;
      TF32 off for matmuls and cuDNN (cuDNN convs default to TF32, which
      would blur the plain versions the kernels are held against);
-  2. build the three hand-written kernels from csrc/ (one nvcc each, in
+  2. build the four hand-written kernels from csrc/ (one nvcc each, in
      parallel) and print the build seconds and ptxas's report;
   3. the main path at full width with seeded random weights: four
      requests (no speaker; tests/data/voice.wav as speaker; a two-chunk
@@ -102,12 +102,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      EMA): the first step its eager run with host syncs made errors
      (torch.cuda.set_sync_debug_mode) and its capture (seconds, host RSS,
      pool bytes), the next two replays, each step's kernel A launches
-     exact (24, or 48 where the recompute re-runs the forward), step ms,
+     exact (24, or 48 where the recompute re-runs the forward) and kernel
+     D's (72 under "none", 144 where a recompute runs the norms again:
+     every other mode), step ms,
      peak memory, each mode's gradients within rel-RMS 1e-2 of "none"'s,
      the first-step losses within 1e-3, the loss lower at step 3, and the
      three steps' losses, parameters and EMA bit for bit those of the
-     step's body called eagerly; kernel A's step against the plain
-     version's and against the fp32 step at the bf16 step's timestep
+     step's body called eagerly; the step with kernels A and D against
+     the plain versions' and against the fp32 step at the bf16 step's timestep
      (within GRAD_FP32_RATIO of the plain bf16 step's distance); AdamW's
      capturable update against the CPU's form (reported); the device
      clip on bf16 gradients bit for bit the host float's; one step at
@@ -175,7 +177,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      320 and 80, T = 1248 with 230 and 10 of 320 latent columns valid)
      and request (g)'s (GB = 3 and 1, S = 80, T = 1008 with 10 of 80),
      and kernel B at (y)'s decode, batch-4 and streamed-block shapes that
-     no other case holds;
+     no other case holds; kernel D's AdaLN and Q/K instances at the
+     serving cells', request (b)'s and a block core's shapes
+     (DIT_NORM_SHAPES) and a TP = 2 shard's heads, against their plain
+     versions within rel-RMS DIT_NORM_REL_RMS_BOUND, with the library's
+     RMS norm alone beside AdaLN;
   5. one {"kernels": [...]} line; 6. the last line {"ok": true, ...}.
 With --kernels-only it skips phase 3 and prints one {"cases": ...} line
 after phase 4 instead, so that two trees' kernels can be timed in one call.
@@ -306,6 +312,7 @@ def _read(counters) -> dict:
 
 
 def kernel_counters() -> dict:
+    from echo_tts_torch.ops import dit_norm
     from echo_tts_torch.ops.int8_matmul import (int8_matmul_fused,
                                                 int8_matmul_partial)
     from echo_tts_torch.ops.joint_attention import fused_joint_attention
@@ -315,13 +322,21 @@ def kernel_counters() -> dict:
             "int8_matmul": (int8_matmul_fused, "launches"),
             "int8_matmul_partial": (int8_matmul_partial, "launches"),
             "res_stack": (fused_res_stack, "launches"),
-            "res_stack_stream": (fused_res_stack, "launches_stream")}
+            "res_stack_stream": (fused_res_stack, "launches_stream"),
+            "dit_norm": (dit_norm, "launches")}
 
 
-def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0) -> dict:
+def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0,
+          dit=None) -> dict:
+    """The launch counts a request must read.  dit, kernel D's: by default
+    three for each kernel A launch (a DiT layer's forward launches kernel A
+    once, AdaLN twice and the Q/K norm once: 72 a step of the 24-layer
+    DiT); given where a remat recompute runs the norms again but not the
+    attention, or where attention runs outside a DiT layer."""
     return {"joint_attention": attn, "joint_attention_kv8": kv8,
             "int8_matmul": int8, "int8_matmul_partial": partial,
-            "res_stack": res, "res_stack_stream": res_stream}
+            "res_stack": res, "res_stack_stream": res_stream,
+            "dit_norm": 3 * (attn + kv8) if dit is None else dit}
 
 
 # The sampler, the codec's encode and decode and the bench's stages run as
@@ -970,6 +985,92 @@ def int8_partial_case(m: int, k: int, n: int, seed: int):
     return res
 
 
+# kernel D's shapes, (GB, S): bulk's B = 8 pass at 640 latents on CFG steps
+# and else; the open cell's passes of 1, 2 and 8 requests at 320 latents
+# on CFG steps and a lone one without; a block core's blocks of 80 and 320;
+# request (b)'s one request at 640 latents on CFG steps and else
+DIT_NORM_SHAPES = ((24, 640), (8, 640), (3, 320), (6, 320), (24, 320),
+                   (1, 320), (3, 80), (3, 640), (1, 640))
+# kernel D against its plain version: the same bf16 composition, only the
+# fp32 sum of squares in another order, so a rounding it dropped (of
+# scale + 1, or of the norm before RoPE, about 1e-3) fails
+DIT_NORM_REL_RMS_BOUND = 1e-4
+
+
+def dit_norm_case(kind: str, gb: int, s: int, seed: int, heads: int = 16,
+                  offset: int = 0):
+    """Kernel D at one shape of the DiT layer: "adaln" on x (GB, S, 2048)
+    with (GB, 1, 2048) shift and scale, or "qk" on q and k (GB, S, H, 128)
+    with RoPE on rope.rotated_heads(H, offset, 16) heads (a TP = 2 shard
+    holds 8 at offset 0 or 8), its table gathered at a block's start."""
+    import torch
+    import torch.nn.functional as F
+    from echo_tts_torch.ops import dit_norm as dn
+    from echo_tts_torch.ops.rope import freqs_tensor, rotated_heads
+    dev, bf, eps, m, dh = "cuda", torch.bfloat16, 1e-5, 2048, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=g, device=dev)).to(bf)
+
+    if kind == "adaln":
+        args = (draw(gb, s, m), draw(gb, 1, m, std=0.5),
+                draw(gb, 1, m, std=0.5), eps)
+        kernel_fn, plain_fn = dn.dit_adaln, dn.dit_adaln_plain
+        # yardstick only: the library's RMS norm alone, no modulation
+        library = lambda: F.rms_norm(args[0], (m,), None, eps)  # noqa: E731
+        # x read, out written, shift and scale read once
+        nbytes = 2 * (2 * gb * s * m + 2 * gb * m)
+        shape = f"AdaLN GB={gb} S={s} M={m}"
+    else:
+        n = rotated_heads(heads, offset, 16)
+        rows = 280 + torch.arange(s, device=dev)
+        freqs = freqs_tensor(dh, 280 + s, dev).index_select(0, rows)
+        args = (draw(gb, s, heads, dh), draw(gb, s, heads, dh),
+                draw(heads, dh, std=0.1, mean=1.0),
+                draw(heads, dh, std=0.1, mean=1.0), freqs, n, eps)
+        kernel_fn, plain_fn = dn.qk_norm_rope, dn.qk_norm_rope_plain
+        library = None   # no one library call norms each head by its weight
+        # q and k read and written once (the weights and the table: a few KB)
+        nbytes = 2 * 2 * 2 * gb * s * heads * dh
+        shape = f"Q/K GB={gb} S={s} H={heads} rotated={n}"
+    got = kernel_fn(*args)
+    torch.cuda.synchronize()
+    want = plain_fn(*args)
+    errs = [errors(a, b) for a, b in zip(
+        *(((got,), (want,)) if kind == "adaln" else (got, want)))]
+    max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    name = f"dit_norm {shape}"
+    if rel > DIT_NORM_REL_RMS_BOUND:
+        raise AssertionError(f"{name}: rel-RMS {rel:.3e} (bound "
+                             f"{DIT_NORM_REL_RMS_BOUND})")
+    kernel = timed(lambda: kernel_fn(*args), 50)
+    plain_ms = timed(lambda: plain_fn(*args), 20)["ms"]
+    library_ms = None if library is None else timed(library, 50)["ms"]
+    b_ms, b_by = bound(0.0, nbytes)
+    res = dict(shape=shape, max_abs_err=max_abs, rel_rms=rel, ms=kernel["ms"],
+               timer=kernel["timer"], host_us=kernel["host_us"],
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, bound_share=b_ms / kernel["ms"])
+    log(f"  {name}: max_abs {max_abs:.3e} rel_rms {rel:.3e} (bound "
+        f"{DIT_NORM_REL_RMS_BOUND}); kernel_ms {kernel['ms']:.4f} host_us "
+        f"{kernel['host_us']:.1f} plain_ms {plain_ms:.4f} library_ms "
+        f"{'null' if library_ms is None else f'{library_ms:.4f}'} bound_ms "
+        f"{b_ms:.4f} ({b_by}), {100 * b_ms / kernel['ms']:.1f} % of the bound")
+    return res
+
+
+def dit_norm_cases():
+    """Kernel D's two instances at DIT_NORM_SHAPES, and the Q/K instance
+    on a TP = 2 shard's heads."""
+    cases = [dit_norm_case(kind, gb, s, seed=300 + i)
+             for kind in ("adaln", "qk")
+             for i, (gb, s) in enumerate(DIT_NORM_SHAPES)]
+    cases += [dit_norm_case("qk", 3, 640, seed=320 + offset, heads=8,
+                            offset=offset) for offset in (0, 8)]
+    return cases
+
+
 def scale_out_cases():
     """Requests (n) and (o)'s kernel shapes: kernel A at request (b)'s
     CFG step with a tensor-parallel rank's heads (8 at tp = 2, 4 at tp =
@@ -1278,7 +1379,9 @@ def phase_main_path(card: str):
                     "int8_matmul": n_int8_linears * attn if int8_modes else 0,
                     "int8_matmul_partial": 0,
                     "res_stack": 3 * n_samples + 3 * n_enc,
-                    "res_stack_stream": 0}
+                    "res_stack_stream": 0,
+                    # kernel D: two AdaLN and one Q/K launch a layer
+                    "dit_norm": 3 * attn}
             if got != want:
                 raise AssertionError(f"{name}: launches {got}, want {want}")
             for shape, finite, peak in decoded[n_dec:]:
@@ -1464,7 +1567,8 @@ def request_stream(models, voice, counters, n_voice_chunks: int) -> tuple:
     want = {"joint_attention": cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n,
             "joint_attention_kv8": 0, "int8_matmul": 0,
             "int8_matmul_partial": 0,
-            "res_stack": 3 * n_voice_chunks, "res_stack_stream": 3 * n}
+            "res_stack": 3 * n_voice_chunks, "res_stack_stream": 3 * n,
+            "dit_norm": 3 * cfg.num_layers * SAMPLER_DEFAULTS["num_steps"] * n}
     name = f"e: stream_synthesize, voice.wav, chunk_sizes={schedule}"
     if got != want:
         raise AssertionError(f"{name}: launches {got}, want {want}")
@@ -2328,7 +2432,8 @@ def request_train_sweep(models, counters, card: str) -> dict:
                                  or not r["grad_sum_finite"]):
             failures.append(f"B = {r['batch']}: {r}")
     if not ran or (len(ran) == len(line["sweep"])
-                   and got != _want(attn=2 * cfg.num_layers * len(ran))):
+                   and got != _want(attn=2 * cfg.num_layers * len(ran),
+                                    dit=2 * 6 * cfg.num_layers * len(ran))):
         failures.append(f"launches {got} for {len(ran)} points of two steps")
     if failures:
         raise AssertionError(f"{name}: {failures}")
@@ -2384,7 +2489,8 @@ def request_bench_rest(models, counters, card: str) -> dict:
              [str(CROSSOVER_TOTAL)] + BENCH_STEPS,
              _want(attn=2 * crossover * per_check), None),
             (bench_attention, [],
-             _want(attn=3 * len(bench_attention.SHAPES)), attention_rows),
+             _want(attn=3 * len(bench_attention.SHAPES), dit=0),
+             attention_rows),
             (bench_int8, [], _want(int8=scans), None)):
         got = _bench_request(module, argv, models, counters, want,
                              "w: " + module.__name__.rsplit(".", 1)[-1],
@@ -3300,6 +3406,10 @@ def request_train(counters, card: str) -> dict:
         f" B params (blockwise=False), init {time.perf_counter() - t0:.1f} s")
     per_step = {"none": n_layers, "full": 2 * n_layers, "dots": 2 * n_layers,
                 "dots_all": n_layers, "attn": n_layers}
+    # kernel D's: three a layer, run again by every mode's recompute (the
+    # selective modes save the attention, not the norms)
+    dit_step = {mode: 3 * n_layers * (1 if mode == "none" else 2)
+                for mode in per_step}
 
     total = dict.fromkeys(counters, 0)
     modes, ref = {}, None
@@ -3321,9 +3431,10 @@ def request_train(counters, card: str) -> dict:
         loss0, grads = step_grads(model0, batch, t, eps, remat=mode)
         torch.cuda.synchronize()
         got = _read(counters)
-        if got != _want(attn=per_step[mode]):
+        want = _want(attn=per_step[mode], dit=dit_step[mode])
+        if got != want:
             raise AssertionError(f"i {mode}: one step's launches {got}, want "
-                                 f"{_want(attn=per_step[mode])}")
+                                 f"{want}")
         if ref is None:
             ref, rel = grads, 0.0
         else:
@@ -3346,11 +3457,10 @@ def request_train(counters, card: str) -> dict:
         got = _read(counters)
         for k, v in got.items():
             total[k] += v
-        if got != _want(attn=3 * per_step[mode]) or times.launches != [
-                per_step[mode]] * 3:
+        want = _want(attn=3 * per_step[mode], dit=3 * dit_step[mode])
+        if got != want or times.launches != [per_step[mode]] * 3:
             raise AssertionError(f"i {mode}: launches {got} over three steps "
-                                 f"({times.launches} a step), want "
-                                 f"{_want(attn=3 * per_step[mode])}")
+                                 f"({times.launches} a step), want {want}")
         if [c[0] for c in captured] != ["train_step"]:
             raise AssertionError(f"i {mode}: captures {captured}, want one "
                                  "train_step program")
@@ -3423,9 +3533,10 @@ def request_train(counters, card: str) -> dict:
     torch.cuda.synchronize()
     if _read(counters) != _want():
         raise AssertionError("i: the plain steps launched a kernel")
-    log(f"  request i: one step's gradients, rel-RMS: kernel A against "
-        f"joint_attention_plain, both bf16, {gaps['kernel_vs_plain']:.3e}; "
-        f"against the fp32 step at the bf16 step's t: kernel A "
+    log(f"  request i: one step's gradients, rel-RMS: kernels A and D "
+        f"against their plain versions, both bf16, "
+        f"{gaps['kernel_vs_plain']:.3e}; against the fp32 step at the bf16 "
+        f"step's t: kernels A and D "
         f"{gaps['kernel_vs_fp32']:.3e}, plain bf16 {gaps['plain_vs_fp32']:.3e}"
         f", ratio {gaps['ratio']:.4f} (bound {GRAD_FP32_RATIO}) ({card})")
     if gaps["ratio"] > GRAD_FP32_RATIO:
@@ -3445,7 +3556,8 @@ def request_train(counters, card: str) -> dict:
     got = _read(counters)
     for k, v in got.items():
         total[k] += v
-    if got != _want(attn=n_layers):
+    # remat "attn", train's default: the recompute runs the norms again
+    if got != _want(attn=n_layers, dit=6 * n_layers):
         raise AssertionError(f"i blockwise: launches {got}")
     unreached = list(state.model.latent_encoder.parameters())
     if not all(p.grad is not None and not bool(p.grad.any())
@@ -3504,7 +3616,9 @@ def request_data(models, counters) -> tuple:
     got = _read(counters)
     for kk, v in got.items():
         total[kk] += v
-    if got != _want(attn=models.dit_cfg.num_layers) or not np.isfinite(losses).all():
+    n_layers = models.dit_cfg.num_layers
+    if (got != _want(attn=n_layers, dit=6 * n_layers)     # remat "attn"
+            or not np.isfinite(losses).all()):
         raise AssertionError(f"j: train step launches {got}, loss {losses}")
     log(f"  request j: write_shards on voice.wav: {n_lat} latents, encode "
         f"{enc_s * 1e3:.1f} ms, kernel B 3 calls; iter_batches -> one train "
@@ -4256,15 +4370,21 @@ def main(argv) -> int:
     launches = trained = None
     if not kernels_only:
         launches, req_b = phase_main_path(card)
+        # kernel D's launches by phase, each summed from the requests'
+        # zeroed and checked counts
+        dit_norm_launches = dict(main_path=launches["dit_norm"])
         got, trained = phase_training(card)
+        dit_norm_launches["training"] = got["dit_norm"]
         for k, v in got.items():
             launches[k] += v
         stamp("phase 3, training")
         got, scaled = phase_scale_out(card, req_b)
         for k, v in got.items():
             launches[k] += v
+        dit_norm_launches["scale_out"] = got["dit_norm"]
         stamp("phase 3, scale-out")
     att, att8, att_bwd, rst, mm = phase_kernels()
+    dnc = dit_norm_cases()
     stamp("phase 4")
     att_train = training_cases()
     att_shard, mm_partial = scale_out_cases()
@@ -4275,7 +4395,8 @@ def main(argv) -> int:
                                         attention_training=list(att_train),
                                         attention_shard=att_shard,
                                         res_stack=rst, int8_matmul=mm,
-                                        int8_matmul_partial=mm_partial)}),
+                                        int8_matmul_partial=mm_partial,
+                                        dit_norm=dnc)}),
               flush=True)
         return 0
     rst_stream = next(r for r in rst if r["shape"] == "C=96 L=655360 "
@@ -4392,6 +4513,19 @@ def main(argv) -> int:
             "(echo_tts_tpu/ops/quant.py:65)", mm_partial, mm_partial[1],
             launches["int8_matmul_partial"],
             wo=summary(mm_partial[0]), prepass_ms=mm_partial[1]["prepass_ms"]),
+        # bulk's CFG step (GB = 24, S = 640): AdaLN the main case, the Q/K
+        # instance beside it; launches on the main path (3 a DiT layer's
+        # forward), and apart those of training (under grad, with the
+        # remat recompute's) and scale-out
+        kernel_entry(
+            "dit_norm", "echo_tts_torch/csrc/dit_norm.cu",
+            "none: a port-only fusion of the plain ops/norms.py / "
+            "ops/rope.py chains", dnc, dnc[0],
+            dit_norm_launches["main_path"],
+            launches_training=dit_norm_launches["training"],
+            launches_scale_out=dit_norm_launches["scale_out"],
+            qk=summary(dnc[len(DIT_NORM_SHAPES)]),
+            by_shape={r["shape"]: summary(r) for r in dnc}),
     ]
     from echo_tts_torch.utils import programs
     log(f"programs: host RSS {host_rss()} bytes, grown "

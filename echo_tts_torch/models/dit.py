@@ -46,12 +46,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..config import EchoDiTConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
+from ..ops.dit_norm import dit_adaln, qk_norm_rope
 from ..ops.embeddings import get_timestep_embedding
 from ..ops.joint_attention import fused_joint_attention, shardable
-from ..ops.norms import LowRankAdaLN, low_rank_adaln, rms_norm
+from ..ops.norms import LowRankAdaLN, adaln_conditioning, rms_norm
 from ..ops.quant import kv_is_quantized
 from ..ops.rope import (apply_rotary_emb, apply_rotary_emb_half_heads,
-                        freqs_tensor)
+                        freqs_tensor, rotated_heads)
 from ..parallel.mesh import (copy_to_model, is_sharded, mesh_coords,
                              row_parallel)
 
@@ -472,10 +473,9 @@ def _joint_attention_static(p: JointAttention, x: torch.Tensor,
     k_self = p.wk(x).reshape(gb, s, heads, dh)
     v_self = p.wv(x).reshape(gb, s, heads, dh)
     gate = p.gate(x)
-    q = rms_norm(q, p.q_norm.weight, eps)
-    k_self = rms_norm(k_self, p.k_norm.weight, eps)
-    q = apply_rotary_emb_half_heads(q, freqs_q, offset, num_heads)
-    k_self = apply_rotary_emb_half_heads(k_self, freqs_q, offset, num_heads)
+    q, k_self = qk_norm_rope(q, k_self, p.q_norm.weight, p.k_norm.weight,
+                             freqs_q, rotated_heads(heads, offset, num_heads),
+                             eps)
     out = fused_joint_attention(q, k_self, v_self, k_static, v_static,
                                 static_mask, col_scale,
                                 sm_scale=1.0 / (dh ** 0.5), kv_scales=kv_scales)
@@ -489,14 +489,16 @@ def _dit_layer(blk: DiTBlock, h: torch.Tensor, cond: torch.Tensor,
                v_st: torch.Tensor, kv_scales=None, *,
                cfg: EchoDiTConfig, mesh=None) -> torch.Tensor:
     """One DiT block: AdaLN, joint attention over [self | static K/V],
-    AdaLN, SwiGLU MLP, each behind its tanh gate (model.py:526-561)."""
-    h_norm, gate = low_rank_adaln(h, cond, blk.attention_adaln, cfg.norm_eps)
+    AdaLN, SwiGLU MLP, each behind its tanh gate (model.py:526-561).  The
+    norms run as kernel D on CUDA tensors (ops/dit_norm.py)."""
+    shift, scale, gate = adaln_conditioning(cond, blk.attention_adaln)
     h = h + gate * _joint_attention_static(
-        blk.attention, h_norm, static_mask, col_scale, freqs_q, k_st, v_st,
-        num_heads=cfg.num_heads, eps=cfg.norm_eps, kv_scales=kv_scales,
-        mesh=mesh)
-    h_norm, gate = low_rank_adaln(h, cond, blk.mlp_adaln, cfg.norm_eps)
-    return h + gate * _mlp(blk.mlp, h_norm, mesh)
+        blk.attention, dit_adaln(h, shift, scale, cfg.norm_eps), static_mask,
+        col_scale, freqs_q, k_st, v_st, num_heads=cfg.num_heads,
+        eps=cfg.norm_eps, kv_scales=kv_scales, mesh=mesh)
+    shift, scale, gate = adaln_conditioning(cond, blk.mlp_adaln)
+    return h + gate * _mlp(blk.mlp, dit_adaln(h, shift, scale, cfg.norm_eps),
+                           mesh)
 
 
 def check_mesh(model: EchoDiT, mesh, kv_batch: int) -> None:

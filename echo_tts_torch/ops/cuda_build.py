@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("joint_attention", "res_stack", "int8_matmul")
+KERNELS = ("joint_attention", "res_stack", "int8_matmul", "dit_norm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -32,12 +32,11 @@ class LowRankAdaLN(nn.Module):
             setattr(self, f"{name}_up", nn.Linear(rank, model_size, bias=True))
 
 
-def low_rank_adaln(x: torch.Tensor, cond_embed: torch.Tensor,
-                   p: LowRankAdaLN, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def adaln_conditioning(cond_embed: torch.Tensor, p: LowRankAdaLN
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """cond_embed (B, 1, 3M) is chunked into (shift, scale, gate), each
-    refined by `up(down(silu(c))) + c`; x is RMS-normalized in fp32,
-    modulated `x * (scale + 1) + shift` and cast back; gate goes through
-    tanh in the conditioning dtype."""
+    refined by `up(down(silu(c))) + c`; gate goes through tanh, all in the
+    conditioning dtype."""
     shift, scale, gate = torch.chunk(cond_embed, 3, dim=-1)
 
     def refine(c, down, up):
@@ -46,10 +45,24 @@ def low_rank_adaln(x: torch.Tensor, cond_embed: torch.Tensor,
     shift = refine(shift, p.shift_down, p.shift_up)
     scale = refine(scale, p.scale_down, p.scale_up)
     gate = refine(gate, p.gate_down, p.gate_up)
+    return shift, scale, torch.tanh(gate)
 
+
+def dit_adaln_plain(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """x RMS-normalized in fp32, modulated `x * (scale + 1) + shift` and
+    cast back: the plain version of kernel D's AdaLN (ops/dit_norm.py)."""
     dtype = x.dtype
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     # (scale + 1) rounds in the conditioning dtype before promotion to fp32
     xf = xf * (scale + 1) + shift
-    return xf.to(dtype), torch.tanh(gate)
+    return xf.to(dtype)
+
+
+def low_rank_adaln(x: torch.Tensor, cond_embed: torch.Tensor,
+                   p: LowRankAdaLN, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x normalized and modulated, tanh(gate)): `adaln_conditioning`, then
+    `dit_adaln_plain`."""
+    shift, scale, gate = adaln_conditioning(cond_embed, p)
+    return dit_adaln_plain(x, shift, scale, eps), gate

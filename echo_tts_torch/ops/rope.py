@@ -57,18 +57,30 @@ def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
     return torch.stack([out_even, out_odd], dim=-1).reshape(x.shape).to(dtype)
 
 
-def apply_rotary_emb_half_heads(x: torch.Tensor, freqs_cis: torch.Tensor,
-                                head_offset: int = 0,
-                                num_heads: Optional[int] = None) -> torch.Tensor:
-    """RoPE on the first half of the HEADS only (model.py:199-202).  A
-    tensor-parallel shard holds heads [head_offset, head_offset + H) of
-    num_heads: it rotates those of its heads that lie in the first half of
-    all of them."""
-    h = x.shape[-2]
-    n = min(max((num_heads or h) // 2 - head_offset, 0), h)
+def rotated_heads(h: int, head_offset: int = 0,
+                  num_heads: Optional[int] = None) -> int:
+    """How many of a tensor's h heads, from the first, the half-heads RoPE
+    rotates: a tensor-parallel shard holds heads [head_offset, head_offset
+    + h) of num_heads (default h) and rotates those of them that lie in
+    the first half of all of them (model.py:199-202)."""
+    return min(max((num_heads or h) // 2 - head_offset, 0), h)
+
+
+def rotate_first_heads(x: torch.Tensor, freqs_cis: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """RoPE on the first n heads of x (B, S, H, D); the rest as they are."""
     if n == 0:
         return x
-    if n == h:
+    if n == x.shape[-2]:
         return apply_rotary_emb(x, freqs_cis)
     x1, x2 = x[..., :n, :], x[..., n:, :]
     return torch.cat([apply_rotary_emb(x1, freqs_cis), x2], dim=-2)
+
+
+def apply_rotary_emb_half_heads(x: torch.Tensor, freqs_cis: torch.Tensor,
+                                head_offset: int = 0,
+                                num_heads: Optional[int] = None) -> torch.Tensor:
+    """RoPE on the first half of the HEADS only (model.py:199-202), of a
+    tensor-parallel shard's heads as `rotated_heads` counts them."""
+    return rotate_first_heads(
+        x, freqs_cis, rotated_heads(x.shape[-2], head_offset, num_heads))

@@ -11,12 +11,12 @@ full 24 layers, and for seed 0 cut to each of `--depths` layers, one
 step's gradients (flow_matching_loss, remat "none") as rel-RMS distances
 over all parameters together:
 
-  kernel_vs_plain  the bf16 step with kernel A against the same step with
-                   joint_attention_plain;
-  kernel_vs_fp32   the bf16 step with kernel A against the fp32 step
-                   (plain attention, TF32 off) at the timestep the bf16
-                   step sees: t rounded to bf16;
-  plain_vs_fp32    the bf16 step with joint_attention_plain against that
+  kernel_vs_plain  the bf16 step with kernels A and D against the same step
+                   with their plain versions (models.plain.plain_kernels);
+  kernel_vs_fp32   the bf16 step with kernels A and D against the fp32
+                   step (plain versions, TF32 off) at the timestep the
+                   bf16 step sees: t rounded to bf16;
+  plain_vs_fp32    the bf16 step with the plain versions against that
                    fp32 step;
   fp32_exact_t     the fp32 step at the unrounded t against the fp32 step
                    at the rounded t.  The timestep embedding's frequencies
@@ -31,6 +31,7 @@ plain_vs_fp32.  The last line is one JSON object with every number.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -41,7 +42,7 @@ import torch
 from ..config import base_dit_config
 from ..device import card_name
 from ..models import dit as tdit
-from ..ops.joint_attention import joint_attention_plain
+from ..models.plain import plain_kernels
 from ..pipeline.text import get_text_input_ids_and_mask
 from ..train import step as tstep
 
@@ -98,17 +99,12 @@ def step_grads(model, batch, t, eps, dtype=torch.bfloat16, *,
                plain: bool = False, remat: str = "none"):
     """(loss, every parameter's gradient) of one flow_matching_loss step
     on a trainable copy of `model` cast to `dtype`; plain=True puts
-    joint_attention_plain in kernel A's place."""
+    the plain versions in kernels A's and D's place (plain_kernels)."""
     trained = tdit.trainable_copy(model).to(dtype)
-    attention = tdit.fused_joint_attention
-    if plain:
-        tdit.fused_joint_attention = joint_attention_plain
-    try:
+    with plain_kernels() if plain else contextlib.nullcontext():
         loss = tstep.flow_matching_loss(trained, batch, t=t, eps=eps,
                                         remat=remat)
         loss.backward()
-    finally:
-        tdit.fused_joint_attention = attention
     grads = [p.grad for p in trained.parameters()]
     if any(x is None for x in grads):
         raise AssertionError("a parameter got no gradient")

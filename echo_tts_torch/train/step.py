@@ -390,11 +390,12 @@ def apply_gradients(state: TrainState, tx: Optimizer, lr: torch.Tensor,
 
 
 def attention_route():
-    """The joint attention the DiT's forward calls now: kernel A's wrapper,
-    or the plain version under models.plain.plain_kernels.  It is part of
-    a training program's key, since a graph replays what its capture
-    launched whatever the module binds later."""
-    return dit.fused_joint_attention
+    """The joint attention and norm islands the DiT's forward calls now:
+    kernel A's and kernel D's wrappers, or the plain versions under
+    models.plain.plain_kernels.  It is part of a training program's key,
+    since a graph replays what its capture launched whatever the module
+    binds later."""
+    return dit.fused_joint_attention, dit.dit_adaln, dit.qk_norm_rope
 
 
 # One program per static key (remat mode, EMA and its decay, the clip,
