@@ -323,11 +323,12 @@ def kernel_counters() -> dict:
             "int8_matmul_partial": (int8_matmul_partial, "launches"),
             "res_stack": (fused_res_stack, "launches"),
             "res_stack_stream": (fused_res_stack, "launches_stream"),
+            "res_stack_centred": (fused_res_stack, "launches_centred"),
             "dit_norm": (dit_norm, "launches")}
 
 
 def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0,
-          dit=None) -> dict:
+          dit=None, res_centred=0) -> dict:
     """The launch counts a request must read.  dit, kernel D's: by default
     three for each kernel A launch (a DiT layer's forward launches kernel A
     once, AdaLN twice and the Q/K norm once: 72 a step of the 24-layer
@@ -336,6 +337,7 @@ def _want(attn=0, kv8=0, int8=0, res=0, res_stream=0, partial=0,
     return {"joint_attention": attn, "joint_attention_kv8": kv8,
             "int8_matmul": int8, "int8_matmul_partial": partial,
             "res_stack": res, "res_stack_stream": res_stream,
+            "res_stack_centred": res_centred,
             "dit_norm": 3 * (attn + kv8) if dit is None else dit}
 
 
@@ -809,6 +811,72 @@ def res_stack_case(c: int, length: int, approx: bool, seed: int,
     return res
 
 
+def res_stack_centred_case(c: int, lengths: list, seed: int):
+    """Kernel B's centred instance (Descript's DAC decoder, the Dia cell's
+    codec) at one width, a batch of len(lengths) rows launched at the
+    longest, each row masked at its own length, sin2_poly: against the
+    plain centred stack (rel-RMS <= REL_RMS_BOUND over the whole batch,
+    over each row's first tile and over each row's last tile, where the
+    right halo and the row's end meet), the rows past their length exactly
+    zero, and one launch counted a call."""
+    import torch
+    from echo_tts_torch.ops import res_stack as rs
+    length = max(lengths)
+    _, x, args, weights = res_stack_inputs(c, length, seed, len(lengths))
+    lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    before = rs.fused_res_stack.launches_centred
+    out = rs.fused_res_stack(x, weights, approx_snake=True, centred=True,
+                             lengths=lens)
+    torch.cuda.synchronize()
+    if rs.fused_res_stack.launches_centred != before + 1:
+        raise AssertionError("the centred call did not count one launch")
+    ref = rs.res_stack_plain(x, *args, approx_snake=True, centred=True,
+                             lengths=lens)
+    max_abs, rel = errors(out, ref)
+    bm = rs.tile_plan(weights.kernel_layout()[0])["bm"]
+    edge = max(max(errors(out[b, :bm], ref[b, :bm])[1],
+                   errors(out[b, max(0, n - bm):n],
+                          ref[b, max(0, n - bm):n])[1])
+               for b, n in enumerate(lengths))
+    zero = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(lengths))
+    shape = (f"C={c} L={length} snake=sin2_poly centred batch "
+             f"{len(lengths)} lengths {lengths}")
+    if rel > REL_RMS_BOUND or edge > REL_RMS_BOUND or not zero:
+        raise AssertionError(f"res stack {shape}: rel-RMS {rel:.3e}, row "
+                             f"edges {edge:.3e}, bound {REL_RMS_BOUND}, "
+                             f"zero past each length {zero}")
+    reps = 5 if length > 4096 else 50
+    kernel = timed(lambda: rs.fused_res_stack(
+        x, weights, approx_snake=True, centred=True, lengths=lens), reps)
+    rows = sum(lengths)
+    flops = 3 * 2.0 * 8 * c * c * rows
+    nbytes = 2 * rows * c * 2 + 3 * 8 * c * c * 2 + 3 * 4 * c * 2
+    b_ms, b_by = bound(flops, nbytes)
+    res = dict(shape=shape, max_abs_err=max_abs, rel_rms=max(rel, edge),
+               ms=kernel["ms"], host_us=kernel["host_us"],
+               timer=kernel["timer"], plain_ms=None, library_ms=None,
+               unrolled_ms=None, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / kernel["ms"])
+    log(f"  res_stack {shape}: max_abs {max_abs:.3e} rel_rms {rel:.3e} "
+        f"row edges {edge:.3e} (bound {REL_RMS_BOUND}) kernel_ms "
+        f"{kernel['ms']:.4f} bound_ms {b_ms:.4f} ({b_by}), "
+        f"{100 * b_ms / kernel['ms']:.1f} % of the bound")
+    return res
+
+
+def centred_cases() -> list:
+    """The Dia cell's codec decode shapes: slices of 4 requests of 744-992
+    frames (L = 64, 256 and 512 samples a frame at C = 384, 192 and 96),
+    rows of their own lengths; and ragged short rows, one of them shorter
+    than a tile and one of a single frame."""
+    frames = [992, 744, 870, 931]
+    out = [res_stack_centred_case(c, [n * rate for n in frames],
+                                  seed=300 + i)
+           for i, (c, rate) in enumerate([(384, 64), (192, 256), (96, 512)])]
+    out.append(res_stack_centred_case(384, [300, 17, 1, 129], seed=310))
+    return out
+
+
 def res_stack_history_case(c: int, length: int, approx: bool, seed: int):
     """Kernel B's history form at one streamed block's shape, with a random
     non-zero history: the output over the whole block and over its first
@@ -1236,6 +1304,8 @@ def phase_kernels():
                 [(384, 10240, True), (192, 40960, True), (96, 81920, True),
                  (384, 81920, True), (192, 327680, True), (96, 655360, True),
                  (64, 2048, False)])]
+    # the centred instance at the Dia cell's decode shapes
+    rst += centred_cases()
     # request (y)'s kernel B and C shapes (bench_expected) that no case
     # above holds: the short request's decode (224 latents), the B = 8
     # decode slices at C = 192, the history form at the blocks of 80 and

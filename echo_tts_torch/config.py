@@ -132,6 +132,11 @@ class DACConfig:
     # (ops/activations.py:sin2_poly); the encoder always runs exact sin.
     snake_approx: bool = False
 
+    # False: the decoder's convolutions are centred ("same" padding), as
+    # in Descript's DAC (dac/model/dac.py), where Fish's S1-DAC is causal
+    # (models/dac/dac.py, decoder_forward)
+    causal: bool = True
+
     @property
     def hop_length(self) -> int:
         h = 1
@@ -181,6 +186,93 @@ def tiny_dac_config() -> DACConfig:
         downsample_factor=(2, 2),
         quantizer_transformer_layers=2,
     )
+
+
+def dac44k_config(snake_approx: bool = False) -> DACConfig:
+    """Descript's DAC 44 kHz (descript/dac_44khz), the codec Dia decodes
+    with: S1-DAC's decoder widths and rates (latent 1024, decoder 1536,
+    8 * 8 * 4 * 2 = 512 samples a frame) and nine residual codebooks of
+    1024 x 8, without Fish's additions (no downsample, no transformers,
+    no semantic codebook), and centred, not causal.  Only the decode from
+    codes runs here (models/dac/dac.py, DAC44)."""
+    return DACConfig(encoder_transformer_layers=(0, 0, 0, 0),
+                     semantic_codebook_size=0, downsample_factor=(),
+                     quantizer_transformer_layers=0,
+                     snake_approx=snake_approx, causal=False)
+
+
+def tiny_dac44k_config() -> DACConfig:
+    """Small centred DAC for the Dia unit tests (hop 8, 3 codebooks of 32
+    x 4), paired with tiny_dia_config."""
+    return DACConfig(encoder_dim=16, encoder_rates=(2, 4), latent_dim=32,
+                     decoder_dim=64, decoder_rates=(4, 2),
+                     encoder_transformer_layers=(0, 0), n_codebooks=3,
+                     codebook_size=32, codebook_dim=4,
+                     semantic_codebook_size=0, downsample_factor=(),
+                     quantizer_transformer_layers=0, causal=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaConfig:
+    """Dia (Nari Labs), an encoder-decoder that generates DAC codes frame
+    by frame.  Field names follow the published config.json
+    (huggingface.co/nari-labs/Dia-1.6B): model.encoder.*, model.decoder.*,
+    model.*_vocab_size and data.*; the defaults are Dia-1.6B's."""
+
+    encoder_n_layer: int = 12
+    encoder_n_embd: int = 1024
+    encoder_n_hidden: int = 4096
+    encoder_n_head: int = 16
+    encoder_head_dim: int = 128
+
+    decoder_n_layer: int = 18
+    decoder_n_embd: int = 2048
+    decoder_n_hidden: int = 8192
+    gqa_query_heads: int = 16
+    kv_heads: int = 4
+    gqa_head_dim: int = 128
+    cross_query_heads: int = 16
+    cross_head_dim: int = 128
+
+    src_vocab_size: int = 256
+    tgt_vocab_size: int = 1028
+    normalization_layer_epsilon: float = 1e-5
+    rope_min_timescale: float = 1.0
+    rope_max_timescale: float = 10000.0
+
+    text_length: int = 1024
+    audio_length: int = 3072
+    channels: int = 9
+    text_pad_value: int = 0
+    audio_eos_value: int = 1024
+    audio_pad_value: int = 1025
+    audio_bos_value: int = 1026
+    delay_pattern: Tuple[int, ...] = (0, 8, 9, 10, 11, 12, 13, 14, 15)
+
+    @property
+    def max_delay(self) -> int:
+        return max(self.delay_pattern)
+
+
+def tiny_dia_config() -> DiaConfig:
+    """Small Dia for unit tests: 2 + 2 layers at width 64, 4 query heads
+    over 2 K/V heads, three channels delayed [0, 2, 3]; its codes are
+    those of tiny_dac44k_config (32 a codebook, then EOS, PAD, BOS)."""
+    return DiaConfig(encoder_n_layer=2, encoder_n_embd=64,
+                     encoder_n_hidden=96, encoder_n_head=4,
+                     encoder_head_dim=16, decoder_n_layer=2,
+                     decoder_n_embd=64, decoder_n_hidden=96,
+                     gqa_query_heads=4, kv_heads=2, gqa_head_dim=16,
+                     cross_query_heads=4, cross_head_dim=16,
+                     tgt_vocab_size=36, text_length=64, audio_length=128,
+                     channels=3, audio_eos_value=32, audio_pad_value=33,
+                     audio_bos_value=34, delay_pattern=(0, 2, 3))
+
+
+# Dia's sampler as published (dia/model.py generate(): cfg_scale 3.0,
+# temperature 1.3, top_p 0.95, cfg_filter_top_k 35)
+DIA_SAMPLER_DEFAULTS = dict(cfg_scale=3.0, temperature=1.3, top_p=0.95,
+                            top_k=35)
 
 
 # Sampler defaults shared by serving and demo layers

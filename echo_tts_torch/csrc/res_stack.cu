@@ -68,6 +68,15 @@
 // copies it to hout right after step 1: the next streamed block reads the
 // values this launch computed, with no second snake pass.  hout is a
 // buffer apart from hin, which block 0 may still be reading.
+// Centred form (Descript's DAC decoder): the k7 conv pads 3d on each side,
+// so the block reads positions [r0 - 3d, r0 + BM + 3d), the same BM + 6d
+// rows of Y, and positions past the end feed real rows as the right pad
+// (they are written as zero, as before).  With lens (batch,) given, row b
+// reads positions >= lens[b] as zero and stores zeros there, so that a
+// batch of ragged items runs as each alone; a block wholly past its row's
+// length stores its zeros and leaves before it touches shared memory.  The
+// form is the template parameter CENTRED, one-shot only, so the causal
+// instances (CENTRED = false, lens null) compile exactly as without it.
 #include "hopper.cuh"
 
 namespace {
@@ -285,7 +294,7 @@ __device__ __forceinline__ void mma_tiles(float (&acc)[Plan<C>::NW / 2],
   ring.release(it0 + n - 1, lane);
 }
 
-template <int C, bool APPROX, bool HIST>
+template <int C, bool APPROX, bool HIST, bool CENTRED>
 __global__ void __launch_bounds__(NTHREADS, Plan<C>::MINB)
 res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
                 const __grid_constant__ CUtensorMap tm_w2,  // (3*C, KP)
@@ -295,8 +304,18 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
                 const float* __restrict__ b2, const float* __restrict__ a2,
                 const __nv_bfloat16* __restrict__ hin,   // (batch, 6d, C) if HIST
                 __nv_bfloat16* __restrict__ hout,        // (batch, 6d, C) if HIST
+                const int* __restrict__ lens,            // (batch,) or null, if CENTRED
                 int L, int unit, int d) {
   using P = Plan<C>;
+  // the row's length: positions at or past it read and store zero
+  const int Lb = CENTRED && lens != nullptr ? min(lens[blockIdx.y], L) : L;
+  if (CENTRED && (int)blockIdx.x * P::BM >= Lb) {
+    const long long o = ((long long)blockIdx.y * L + blockIdx.x * P::BM) * C;
+    const int rows = min(P::BM, L - (int)blockIdx.x * P::BM);
+    for (int i = threadIdx.x; i < rows * (C / 8); i += NTHREADS)
+      reinterpret_cast<uint4*>(out + o)[i] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_aligned_1024(smem_raw);
   const int ny = P::BM + 6 * d;
@@ -348,7 +367,7 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
   constexpr int CH = C / 8;
   constexpr int U = 4;
   const int n_chunks = ny * CH;
-  const int p0 = r0 - 6 * d;
+  const int p0 = r0 - (CENTRED ? 3 : 6) * d;
   const long long hbase = (long long)blockIdx.y * 6 * d;
   for (int i0 = ct; i0 < n_chunks; i0 += 256 * U) {
     uint4 v[U];
@@ -357,7 +376,7 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
       const int i = i0 + 256 * u;
       const int pos = p0 + i / CH;
       v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < n_chunks && pos >= 0 && pos < L)
+      if (i < n_chunks && pos >= 0 && pos < Lb)
         v[u] = *reinterpret_cast<const uint4*>(x + (base + pos) * C + (i % CH) * 8);
       else if (HIST && i < n_chunks && pos < 0)
         v[u] = *reinterpret_cast<const uint4*>(
@@ -432,6 +451,10 @@ res_unit_kernel(const __grid_constant__ CUtensorMap tm_w1,  // (3*7*C, KP)
       const int pos = r0 + row0 + 8 * half;
       if (pos >= L) continue;
       const long long off = (base + pos) * C + col;
+      if (CENTRED && pos >= Lb) {
+        *reinterpret_cast<uint32_t*>(out + off) = 0u;
+        continue;
+      }
       const float2 xv = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(x + off));
       *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(
@@ -452,14 +475,15 @@ int weight_map(CUtensorMap* m, const void* w, int rows) {
                   box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int C, bool APPROX, bool HIST>
+template <int C, bool APPROX, bool HIST, bool CENTRED = false>
 int run_stack(const void* x, void* tmp, void* out, const void* w1,
               const void* b1, const void* a1, const void* w2, const void* b2,
               const void* a2, const void* const* hin, void* const* hout,
-              int batch, int L, int bm, int stages, cudaStream_t st) {
+              int batch, int L, int bm, int stages, cudaStream_t st,
+              const int* lens = nullptr) {
   using P = Plan<C>;
   if (bm != P::BM || stages != P::STAGES) return (int)cudaErrorInvalidValue;
-  auto kern = res_unit_kernel<C, APPROX, HIST>;
+  auto kern = res_unit_kernel<C, APPROX, HIST, CENTRED>;
   static const int attr = allow_smem(kern, P::smem(MAX_DIL));
   if (attr) return attr;
   CUtensorMap t1, t2;
@@ -480,7 +504,7 @@ int run_stack(const void* x, void* tmp, void* out, const void* w1,
     kern<<<grid, NTHREADS, P::smem(dil[u]), st>>>(
         t1, t2, src[u], dst[u], (const float*)b1, (const float*)a1,
         (const float*)b2, (const float*)a2, (const __nv_bfloat16*)hin[u],
-        (__nv_bfloat16*)hout[u], L, u, dil[u]);
+        (__nv_bfloat16*)hout[u], lens, L, u, dil[u]);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   return 0;
@@ -495,7 +519,21 @@ int run_c(int approx, const void* x, void* tmp, void* out, const void* w1,
   auto run = approx ? (hist ? run_stack<C, true, true> : run_stack<C, true, false>)
                     : (hist ? run_stack<C, false, true> : run_stack<C, false, false>);
   return run(x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm,
-             stages, st);
+             stages, st, nullptr);
+}
+
+template <int C>
+int run_centred(int approx, const void* x, void* tmp, void* out,
+                const void* w1, const void* b1, const void* a1,
+                const void* w2, const void* b2, const void* a2,
+                const int* lens, int batch, int L, int bm, int stages,
+                cudaStream_t st) {
+  const void* hin[3] = {nullptr, nullptr, nullptr};
+  void* hout[3] = {nullptr, nullptr, nullptr};
+  auto run = approx ? run_stack<C, true, false, true>
+                    : run_stack<C, false, false, true>;
+  return run(x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm,
+             stages, st, lens);
 }
 
 }  // namespace
@@ -537,6 +575,32 @@ extern "C" int echo_res_stack_bf16(const void* x, void* tmp, void* out,
     case 192: return run_c<192>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
     case 256: return run_c<256>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
     case 384: return run_c<384>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, hin, hout, batch, L, bm, stages, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The centred form (Descript's DAC decoder), same buffers and weights as
+// echo_res_stack_bf16 without the histories: each k7 conv pads 3d zeros on
+// each side.  lens: null, or (batch,) int32 device lengths, each row's
+// positions at or past its own read as zero and written as zero.
+extern "C" int echo_res_stack_centred_bf16(const void* x, void* tmp,
+                                           void* out, const void* w1,
+                                           const void* b1, const void* a1,
+                                           const void* w2, const void* b2,
+                                           const void* a2, const void* lens,
+                                           int batch, int L, int C, int bm,
+                                           int stages, int approx,
+                                           void* stream) {
+  if (batch < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int* ln = reinterpret_cast<const int*>(lens);
+  switch (C) {
+    case 64: return run_centred<64>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
+    case 96: return run_centred<96>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
+    case 128: return run_centred<128>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
+    case 192: return run_centred<192>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
+    case 256: return run_centred<256>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
+    case 384: return run_centred<384>(approx, x, tmp, out, w1, b1, a1, w2, b2, a2, ln, batch, L, bm, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

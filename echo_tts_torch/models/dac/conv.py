@@ -1,4 +1,5 @@
-"""Causal 1-D conv machinery for the S1-DAC codec, NLC layout.
+"""Causal 1-D conv machinery for the S1-DAC codec, NLC layout, and the
+centred ("same") forms that Descript's DAC decoder takes.
 
 Counterpart of echo_tts_tpu/models/dac/conv.py (reference:
 autoencoder.py:38-109, 264-373).  Tensors are (batch, time, channels) and
@@ -127,6 +128,50 @@ def causal_conv_transpose1d(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
+def centred_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor], *,
+                   dilation: int = 1) -> torch.Tensor:
+    """A stride-1 conv with (k_eff - 1) / 2 zeros on each side, so that the
+    output has x's length (DAC's WNConv1d(padding=(k - 1) * d // 2),
+    dac/model/dac.py).  x (B, L, C_in), kernel (K, C_in, C_out), K odd:
+    the causal form on x padded on the right by half the window, its
+    first half-window of outputs dropped."""
+    k_eff = (kernel.shape[0] - 1) * dilation + 1
+    if k_eff % 2 != 1:
+        raise ValueError(f"a centred conv needs an odd window, got {k_eff}")
+    half = (k_eff - 1) // 2
+    out = causal_conv1d(F.pad(x, (0, 0, 0, half)), kernel, bias,
+                        dilation=dilation)
+    return out[:, half:]
+
+
+def centred_conv_transpose1d(x: torch.Tensor, kernel: torch.Tensor,
+                             bias: Optional[torch.Tensor], *,
+                             stride: int) -> torch.Tensor:
+    """DAC's WNConvTranspose1d(kernel 2s, stride s, padding ceil(s / 2)):
+    the full transposed conv of x, ((L + 1) * s samples for K = 2s), with
+    ceil(s / 2) cut from each end, L * s samples for an even stride.
+    kernel (K, C_out, C_in)."""
+    k = kernel.shape[0]
+    pad = -(-stride // 2)
+    full = causal_conv_transpose1d(F.pad(x, (0, 0, 0, k // stride - 1)),
+                                   kernel, bias, stride=stride)
+    out_len = (x.shape[1] - 1) * stride + k - 2 * pad
+    return full[:, pad:pad + out_len]
+
+
+def mask_tail(x: torch.Tensor,
+              lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B, L, C) with the rows at or past each item's length zeroed:
+    ahead of a centred conv this is the zero pad an item of that length
+    alone would see, so that a batch of ragged items decodes as each alone.
+    lengths (B,) int, or None (x as it is)."""
+    if lengths is None:
+        return x
+    keep = torch.arange(x.shape[1], device=x.device)[None] < lengths[:, None]
+    return x * keep[..., None].to(x.dtype)
+
+
 def snake(x: torch.Tensor, alpha: torch.Tensor,
           approx: bool = False) -> torch.Tensor:
     """x + (1/(a+1e-9)) sin^2(a x) (reference: autoencoder.py:96-109);
@@ -162,13 +207,25 @@ def residual_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, dilation: int,
                   approx_snake: bool = False,
-                  history: Optional[torch.Tensor] = None):
+                  history: Optional[torch.Tensor] = None,
+                  centred: bool = False,
+                  lengths: Optional[torch.Tensor] = None):
     """Snake -> causal k7 dilated conv -> Snake -> causal k1 conv, residual
     (reference: autoencoder.py:879-900).  w1 (7, C, C), w2 (1, C, C).
 
     With `history` (B, 6 * dilation, C), the previous block's tail of
     snake1(x), in place of the k7 conv's zero pad, returns (out, new
-    history) (streaming.py:139-147 `_residual_unit_s`)."""
+    history) (streaming.py:139-147 `_residual_unit_s`).
+
+    `centred`: the k7 conv pads 3 * dilation on each side (DAC's
+    ResidualUnit, dac/model/dac.py); `lengths` (B,) then zeroes each
+    item's rows from its length on, at the conv's input and in the
+    output (`mask_tail`)."""
+    if centred:
+        y = mask_tail(snake(x, alpha1, approx=approx_snake), lengths)
+        y = centred_conv1d(y, w1, b1, dilation=dilation)
+        y = snake(y, alpha2, approx=approx_snake)
+        return mask_tail(x + causal_conv1d(y, w2, b2), lengths)
     y = snake(x, alpha1, approx=approx_snake)
     new_hist = None if history is None else roll_history(history, y)
     y = causal_conv1d(y, w1, b1, dilation=dilation, history=history)
@@ -284,12 +341,15 @@ class ResidualUnit(nn.Module):
             Snake1d(dim), CausalConv(dim, dim, 1)])
 
     def forward(self, x: torch.Tensor, approx_snake: bool = False,
-                history: Optional[torch.Tensor] = None):
+                history: Optional[torch.Tensor] = None,
+                centred: bool = False,
+                lengths: Optional[torch.Tensor] = None):
         s1, c1, s2, c2 = self.block
         return residual_unit(x, s1.vec(), c1.conv.kernel(), c1.conv.bias,
                              s2.vec(), c2.conv.kernel(), c2.conv.bias,
                              self.dilation, approx_snake=approx_snake,
-                             history=history)
+                             history=history, centred=centred,
+                             lengths=lengths)
 
 
 class ConvNeXtBlock(nn.Module):

@@ -12,6 +12,12 @@ Reference quirks kept: the decoder has NO transformer at runtime
 codes are clamped before the lookup; the decoder's snakes take the
 polynomial sin^2 only when cfg.snake_approx is set (the bf16 serving
 codec), the encoder always runs exact sin.
+
+Descript's DAC 44 kHz (`DAC44`, the codec Dia decodes with) shares the
+decoder's module tree and widths; under `cfg.causal = False` its
+convolutions, transposed convolutions and residual units are centred
+(dac/model/dac.py), and a batch of items of different lengths decodes as
+each item alone (`decoder_forward`'s `lengths`).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from ...ops.res_stack import (DILATIONS, KERNEL_WIDTHS, ResStackWeights,
                                fused_res_stack, res_stack_eligible)
 from ...utils import programs
 from .conv import (CausalConv, CausalConvTranspose, ConvNeXtBlock,
-                   ResidualUnit, Snake1d, snake)
+                   ResidualUnit, Snake1d, centred_conv1d,
+                   centred_conv_transpose1d, mask_tail, snake)
 from .quantize import ResidualVectorQuantize, rvq_encode, rvq_from_codes
 from .transformer import WindowLimitedTransformer, transformer_forward
 
@@ -108,6 +115,23 @@ class Quantizer(nn.Module):
             cfg.n_codebooks, d, cfg.codebook_size, cfg.codebook_dim)
 
 
+class DAC44(nn.Module):
+    """Descript's DAC 44 kHz for decoding codes: the decoder (the module
+    tree of S1-DAC's, centred by `cfg.causal = False`) and the residual
+    quantizer of cfg.n_codebooks codebooks, under DAC's own names."""
+
+    def __init__(self, cfg: DACConfig):
+        super().__init__()
+        if cfg.causal:
+            raise ValueError("DAC44 decodes with centred convolutions: "
+                             "cfg.causal must be False")
+        self.cfg = cfg
+        self.decoder = Decoder(cfg)
+        self.quantizer = ResidualVectorQuantize(
+            cfg.n_codebooks, cfg.latent_dim, cfg.codebook_size,
+            cfg.codebook_dim)
+
+
 class S1DAC(nn.Module):
     def __init__(self, cfg: DACConfig):
         super().__init__()
@@ -148,7 +172,7 @@ def _stack_weights(units) -> ResStackWeights:
 
 
 def _res_stack(units, x: torch.Tensor, approx_snake: bool = False,
-               history=None):
+               history=None, centred: bool = False, lengths=None):
     """Three dilated residual units: the hand-written kernel on a CUDA
     tensor at C <= 384 (ops/res_stack.py), the unrolled units otherwise.
 
@@ -157,14 +181,19 @@ def _res_stack(units, x: torch.Tensor, approx_snake: bool = False,
     (out, new history): through the kernel's history form at the kernel's
     widths (on the CPU its plain version), else through the unrolled
     units' history form, as the one-shot path runs them above C = 384
-    (the base decoder's first block, C = 768)."""
+    (the base decoder's first block, C = 768).
+
+    `centred` (DAC44's decoder) runs the centred units, each item's rows
+    from `lengths` (B,) on zeroed (models/dac/conv.py `mask_tail`)."""
     kernel_width = x.shape[2] <= KERNEL_WIDTHS[-1]
     if res_stack_eligible(x) or (history is not None and kernel_width):
         return fused_res_stack(x, _stack_weights(units),
-                               approx_snake=approx_snake, history=history)
+                               approx_snake=approx_snake, history=history,
+                               centred=centred, lengths=lengths)
     if history is None:
         for u in units:
-            x = u(x, approx_snake=approx_snake)
+            x = u(x, approx_snake=approx_snake, centred=centred,
+                  lengths=lengths)
         return x
     new_history = []
     for u, h in zip(units, history):
@@ -189,10 +218,14 @@ def encoder_forward(enc: Encoder, cfg: DACConfig, audio: torch.Tensor) -> torch.
     return enc.block[n + 2](x)
 
 
-def decoder_forward(dec: Decoder, cfg: DACConfig, z: torch.Tensor) -> torch.Tensor:
+def decoder_forward(dec: Decoder, cfg: DACConfig, z: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z (B, T, latent_dim) -> audio (B, T*hop, 1) in [-1, 1]
-    (autoencoder.py:932-998)."""
+    (autoencoder.py:932-998).  A centred decoder (`cfg.causal` False)
+    takes `lengths` (B,) in frames, or None for T each."""
     ap = cfg.snake_approx
+    if not cfg.causal:
+        return _centred_decoder_forward(dec, cfg, z, lengths)
     x = dec.model[0](z)
     for blk in dec.model[1:1 + len(cfg.decoder_rates)]:
         x = snake(x, blk.block[0].vec(), approx=ap)
@@ -201,6 +234,50 @@ def decoder_forward(dec: Decoder, cfg: DACConfig, z: torch.Tensor) -> torch.Tens
     n = len(cfg.decoder_rates)
     x = snake(x, dec.model[n + 1].vec(), approx=ap)
     return torch.tanh(dec.model[n + 2](x))
+
+
+def _centred_decoder_forward(dec: Decoder, cfg: DACConfig, z: torch.Tensor,
+                             lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """DAC's Decoder (dac/model/dac.py): k7 conv, four blocks of snake,
+    transposed conv (2s, stride s, padding ceil(s / 2)) and three residual
+    units, snake, k7 conv, tanh; every conv centred.  Each item's rows at
+    or past its length (at the layer's rate) are zeroed ahead of each conv,
+    so that an item decodes as it would alone at its own length; its
+    audio past lengths * hop is not defined."""
+    ap = cfg.snake_approx
+
+    def conv(m, x, n):
+        return centred_conv1d(mask_tail(x, n), m.conv.kernel(), m.conv.bias,
+                              dilation=m.dilation)
+
+    n = lengths
+    x = conv(dec.model[0], z, n)
+    for blk in dec.model[1:1 + len(cfg.decoder_rates)]:
+        up = blk.block[1]
+        x = snake(x, blk.block[0].vec(), approx=ap)
+        x = centred_conv_transpose1d(mask_tail(x, n), up.conv.kernel(),
+                                     up.conv.bias, stride=up.stride)
+        n = None if n is None else n * up.stride
+        x = _res_stack(blk.block[2:5], x, approx_snake=ap, centred=True,
+                       lengths=n)
+    k = len(cfg.decoder_rates)
+    x = snake(x, dec.model[k + 1].vec(), approx=ap)
+    return torch.tanh(conv(dec.model[k + 2], x, n))
+
+
+def dac44_decode_codes(model: DAC44, codes: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """codes (B, n_codebooks, T) -> audio (B, T * hop) fp32: the codebooks'
+    sum (rvq_from_codes, codes clamped to the codebook), the centred
+    decoder, tanh (DAC.decode, dac/model/dac.py).  `lengths` (B,) frames:
+    each item decoded as alone at its length, zero past it."""
+    cfg = model.cfg
+    z = rvq_from_codes(model.quantizer,
+                       torch.clamp(codes, 0, cfg.codebook_size - 1))
+    audio = decoder_forward(model.decoder, cfg, z, lengths)[..., 0].float()
+    if lengths is None:
+        return audio
+    return mask_tail(audio[..., None], lengths * cfg.hop_length)[..., 0]
 
 
 # ---------------------------------------------------------------------------

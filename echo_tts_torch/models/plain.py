@@ -13,8 +13,10 @@ from . import dit
 from .dac import dac
 
 
-def _plain_stack(x, weights, *, approx_snake=False, history=None):
-    return res_stack_plain(x, *weights.plain_args(), approx_snake, history)
+def _plain_stack(x, weights, *, approx_snake=False, history=None,
+                 centred=False, lengths=None):
+    return res_stack_plain(x, *weights.plain_args(), approx_snake, history,
+                           centred=centred, lengths=lengths)
 
 
 @contextlib.contextmanager

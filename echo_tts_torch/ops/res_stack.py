@@ -30,6 +30,17 @@ block holding rows [L - 6 * d, L)), so that the next block reads the
 values this launch computed.  Those calls count in
 `fused_res_stack.launches_stream`, the one-shot ones in
 `fused_res_stack.launches`.
+
+The centred form (Descript's DAC decoder, `centred=True`): each unit's k7
+conv pads 3 * d on each side, so a block of BM rows reads the 3 * d rows
+before it and the 3 * d after it, the same BM + 6 * d rows of tile as the
+causal form, 39 frames of halo on each side over the stack.  With
+`lengths` (B,) int32, each item's rows at or past its length are read as
+zero and written as zero, so that a batch of ragged items runs as each
+alone at its own length (models/dac/conv.py `mask_tail`).  It is a
+template instance of its own in the .cu file (CENTRED), one-shot only, so
+the causal instances compile as before; its calls count in
+`fused_res_stack.launches_centred`.
 """
 from __future__ import annotations
 
@@ -70,7 +81,8 @@ def _snake_f32(v: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tens
 
 
 def residual_unit_plain(x, w1, b1, a1, w2, b2, a2, dil: int,
-                        approx_snake: bool = False, history=None):
+                        approx_snake: bool = False, history=None,
+                        centred: bool = False, lengths=None):
     """One residual unit (models/dac/conv.py:residual_unit) at the Pallas
     kernel's rounding points (res_stack.py:90-111), which the CUDA kernel
     keeps: snake in fp32 then cast; each conv from working-dtype inputs with
@@ -80,10 +92,21 @@ def residual_unit_plain(x, w1, b1, a1, w2, b2, a2, dil: int,
 
     With `history` (B, 6 * dil, C), the previous block's tail of snake1(x),
     as the k7 conv's context in place of zeros, returns (out, new history),
-    the last 6 * dil rows of [history | snake1(x)] in x's dtype."""
+    the last 6 * dil rows of [history | snake1(x)] in x's dtype.
+
+    `centred`: the k7 conv's context is 3 * dil zeros on each side, and
+    with `lengths` (B,) each item's rows at or past its length are zero in
+    snake1(x) and in the output (the module docstring)."""
     dt, length = x.dtype, x.shape[1]
     y = _snake_f32(x, a1, approx_snake)
-    if history is None:
+    keep = None
+    if lengths is not None:
+        keep = (torch.arange(length, device=x.device)[None]
+                < lengths[:, None])[..., None].to(dt)
+        y = y * keep
+    if centred:
+        y = F.pad(y, (0, 0, 3 * dil, 3 * dil))
+    elif history is None:
         y = F.pad(y, (0, 0, 6 * dil, 0))
     else:
         y = torch.cat([history.to(dt), y], dim=1)
@@ -95,19 +118,23 @@ def residual_unit_plain(x, w1, b1, a1, w2, b2, a2, dil: int,
         z = z + y[:, k * dil:k * dil + length] @ w[k]
     z = _snake_f32((z + b1.float()).to(dt), a2, approx_snake)
     out = x + (z.float() @ w2.float() + b2.float()).to(dt)
+    if keep is not None:
+        out = out * keep
     return out if history is None else (out, new_history)
 
 
 def res_stack_plain(x, w1, b1, a1, w2, b2, a2, approx_snake: bool = False,
-                    history=None):
+                    history=None, centred: bool = False, lengths=None):
     """The three units, d = 1, 3, 9, one after the other, as the kernel runs
     them (one launch each); weights stacked over the unit axis.  With
-    `history` (three tensors) returns (out, [three new histories])."""
+    `history` (three tensors) returns (out, [three new histories]);
+    `centred` and `lengths` as in residual_unit_plain."""
     new_history = []
     for u, dil in enumerate(DILATIONS):
         if history is None:
             x = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u],
-                                    a2[u], dil, approx_snake)
+                                    a2[u], dil, approx_snake,
+                                    centred=centred, lengths=lengths)
         else:
             x, h = residual_unit_plain(x, w1[u], b1[u], a1[u], w2[u], b2[u],
                                        a2[u], dil, approx_snake, history[u])
@@ -223,8 +250,12 @@ def _dense16(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+_CENTRED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])
+
+
 def _launch(x: torch.Tensor, weights: ResStackWeights, approx_snake: bool,
-            history=None):
+            history=None, centred: bool = False, lengths=None):
     batch, length, c = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the residual-stack kernel takes bf16 activations; "
@@ -237,22 +268,38 @@ def _launch(x: torch.Tensor, weights: ResStackWeights, approx_snake: bool,
     xk = _dense16(F.pad(x, (0, pad)) if pad else x)
     # the three units run x -> out -> tmp -> out
     out, tmp = torch.empty_like(xk), torch.empty_like(xk)
+    plan = tile_plan(cp)
+    fn = (cuda_build.entry("res_stack", "echo_res_stack_centred_bf16",
+                           _CENTRED_ARGTYPES) if centred else
+          cuda_build.entry("res_stack", "echo_res_stack_bf16", _ARGTYPES))
+    buffers = (xk.data_ptr(), tmp.data_ptr(), out.data_ptr(), w1t.data_ptr(),
+               b1.data_ptr(), a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+               a2.data_ptr())
+    shape = (batch, length, cp, plan["bm"], plan["stages"],
+             int(bool(approx_snake)),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if centred:
+        lens = None
+        if lengths is not None:
+            if tuple(lengths.shape) != (batch,):
+                raise ValueError(f"lengths {tuple(lengths.shape)} must be "
+                                 f"({batch},)")
+            lens = lengths.to(device=x.device,
+                              dtype=torch.int32).contiguous()
+        rc = fn(*buffers, None if lens is None else lens.data_ptr(), *shape)
+        cuda_build.check(rc, "res_stack")
+        fused_res_stack.launches_centred += 1
+        return out[..., :c] if pad else out
     hist_in = hist_out = [None] * 3
     if history is not None:
         hist_in = [_dense16(F.pad(h, (0, pad)) if pad else h) for h in history]
         hist_out = [torch.empty_like(h) for h in hist_in]
-    plan = tile_plan(cp)
-    fn = cuda_build.entry("res_stack", "echo_res_stack_bf16", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = fn(xk.data_ptr(), tmp.data_ptr(), out.data_ptr(), w1t.data_ptr(),
-            b1.data_ptr(), a1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-            a2.data_ptr(), *(ptr(h) for h in hist_in),
-            *(ptr(h) for h in hist_out), batch, length, cp, plan["bm"],
-            plan["stages"], int(bool(approx_snake)), stream)
+    rc = fn(*buffers, *(ptr(h) for h in hist_in),
+            *(ptr(h) for h in hist_out), *shape)
     cuda_build.check(rc, "res_stack")
     out = out[..., :c] if pad else out
     if history is None:
@@ -263,7 +310,8 @@ def _launch(x: torch.Tensor, weights: ResStackWeights, approx_snake: bool,
 
 
 def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
-                    approx_snake: bool = False, history=None):
+                    approx_snake: bool = False, history=None,
+                    centred: bool = False, lengths=None):
     """Apply the three dilated residual units to x (B, L, C).
 
     With `history` (three tensors (B, 6 * d, C) in x's dtype, d = 1, 3, 9)
@@ -273,7 +321,15 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
     `fused_res_stack.launches`, or `.launches_stream` for the history
     form.  Raises, on every device, when grad mode is on and an input
     requires grad: the kernel has no backward, and its output must never
-    be a tensor cut from the graph."""
+    be a tensor cut from the graph.
+
+    `centred` (with `lengths` (B,) or None) runs the centred form of the
+    module docstring, one-shot only; its calls count in
+    `fused_res_stack.launches_centred`."""
+    if centred and history is not None:
+        raise ValueError("the centred form has no history form")
+    if lengths is not None and not centred:
+        raise ValueError("lengths are taken by the centred form only")
     if history is not None:
         if len(history) != len(DILATIONS):
             raise ValueError(f"history holds {len(history)} tensors, not "
@@ -291,13 +347,15 @@ def fused_res_stack(x: torch.Tensor, weights: ResStackWeights, *,
             "torch.inference_mode(), or on tensors that do not require grad")
     if x.device.type == "cpu":
         return res_stack_plain(x, *weights.plain_args(), approx_snake,
-                               history)
+                               history, centred=centred, lengths=lengths)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, weights, approx_snake, history)
+    return _launch(x, weights, approx_snake, history, centred, lengths)
 
 
 fused_res_stack.launches = 0
 fused_res_stack.launches_stream = 0
+fused_res_stack.launches_centred = 0
 # exact under CUDA-graph replay (utils/programs.py)
-programs.register_counters(fused_res_stack, "launches", "launches_stream")
+programs.register_counters(fused_res_stack, "launches", "launches_stream",
+                           "launches_centred")

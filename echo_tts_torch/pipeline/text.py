@@ -47,6 +47,19 @@ def tokenizer_encode(text: str, append_bos: bool = True,
     return ids
 
 
+def dia_text_ids(texts: List[str], length: int = 1024,
+                 pad: int = 0) -> np.ndarray:
+    """Dia's byte encoding (dia/model.py _prepare_text_input): each text's
+    UTF-8 bytes with "[S1]" and "[S2]" as 0x01 and 0x02, cut to `length`
+    or padded with `pad` to it; (len(texts), length) int64."""
+    out = np.full((len(texts), length), pad, np.int64)
+    for i, text in enumerate(texts):
+        b = (text.encode("utf-8").replace(b"[S1]", b"\x01")
+             .replace(b"[S2]", b"\x02"))[:length]
+        out[i, :len(b)] = list(b)
+    return out
+
+
 def chunk_text(text: str, max_chars: int = 300) -> List[str]:
     """<= max_chars chunks preferring sentence > clause > space boundaries
     (reference: inference.py:140-190 == handler.py:49-99)."""

@@ -24,6 +24,17 @@ enqueue of the captured sampler), `batch.decode` per decode slice (its
 open span (`profiling.annotate`): `rows` with padding, `seq`, the text
 and speaker widths as launched, each row's real text and speaker
 lengths, and the decode batches, read from the host's masks.
+
+A Dia bundle (models/dia.DiaModels) runs the same entry: its requests'
+texts (each voice prompt's transcript before the text) and prompt codes
+in one pass through the encoder (`dia.encode`: `rows`, `text_width`,
+`text_lengths`), the prompts' prefill (`dia.prefill`: `rows`,
+`prompt_frames`), the frame loop (`dia.decode`: `rows`, `steps`,
+`cache_capacity`, `frames`; sampler/ar.py), the delay undone and the
+codes copied (`dia.codes`), then the codec's decode in `decode_batch`
+slices (`batch.decode`), each request at its own length.  Each of the
+first three ends with the card's work done, so that the device time of a
+stage lies inside its span.
 """
 from __future__ import annotations
 
@@ -33,11 +44,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import MAX_TEXT_LENGTH, SAMPLER_DEFAULTS
+from ..config import DIA_SAMPLER_DEFAULTS, MAX_TEXT_LENGTH, SAMPLER_DEFAULTS
+from ..models import dia
+from ..models.dac.dac import dac44_decode_codes
 from ..pipeline import dsp
 from ..pipeline.pipeline import (EchoModels, ae_decode,
                                  get_speaker_latent_and_mask)
-from ..pipeline.text import get_text_input_ids_and_mask
+from ..pipeline.text import dia_text_ids, get_text_input_ids_and_mask
+from ..sampler import ar
 from ..sampler.euler import sample_euler_cfg_independent_guidances
 from ..utils import profiling
 
@@ -54,6 +68,13 @@ class BatchRequest:
     speaker_latent: Optional[np.ndarray] = None
     speaker_mask: Optional[np.ndarray] = None
     request_id: Optional[str] = None
+    # Dia: the voice prompt's codes (P, channels) and its transcript (put
+    # before `text`), the frames to generate, and whether the result
+    # carries the request's logits (DiaModels.keep_logits slots a pass)
+    prompt_codes: Optional[np.ndarray] = None
+    prompt_text: str = ""
+    frames: Optional[int] = None
+    keep_logits: bool = False
 
 
 @dataclasses.dataclass
@@ -61,6 +82,11 @@ class BatchResult:
     audio: np.ndarray        # (1, samples) float32, flattening-cropped
     normalized_text: str
     request_id: Optional[str]
+    # Dia: the generated frames' codes (frames, channels), and with
+    # keep_logits the conditional and unconditional logits of every step,
+    # (2, frames + max delay, channels, vocab) fp32 on the device
+    codes: Optional[np.ndarray] = None
+    logits: Optional[torch.Tensor] = None
 
 
 def _group_key(params: Dict) -> Tuple:
@@ -116,6 +142,8 @@ def run_batch(
     """
     if not requests:
         return []
+    if isinstance(models, dia.DiaModels):
+        return _run_dia_batch(models, requests, sampler_params, decode_batch)
     p = dict(SAMPLER_DEFAULTS)
     p.update(sampler_params or {})
     seq_len = p.pop("sequence_length")
@@ -201,3 +229,80 @@ def run_batch(
                                        normalized_text=normalized[i],
                                        request_id=r.request_id))
     return results
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_dia_batch(models: dia.DiaModels, requests: Sequence[BatchRequest],
+                   sampler_params: Optional[Dict],
+                   decode_batch: int) -> List[BatchResult]:
+    """A Dia pass (module docstring): B requests, 2B model rows."""
+    cfg, dev, b = models.cfg, models.device, len(requests)
+    p = dict(DIA_SAMPLER_DEFAULTS)
+    p.update(sampler_params or {})
+    params = ar.SamplerParams(**p)
+    if any(r.frames is None or r.frames < 1 for r in requests):
+        raise ValueError("a Dia request gives the frames to generate")
+    frames = [int(r.frames) for r in requests]
+    # the server pads a pass with repeats of its last request: one slot each
+    keep = [i for i, r in enumerate(requests) if r.keep_logits
+            and all(q is not r for q in requests[:i])]
+
+    with profiling.span("batch.text"):
+        texts = [r.prompt_text + r.text for r in requests]
+        ids = dia_text_ids(texts, cfg.text_length, cfg.text_pad_value)
+        valid = ids != cfg.text_pad_value
+        prompts = [np.zeros((0, cfg.channels), np.int64)
+                   if r.prompt_codes is None
+                   else np.asarray(r.prompt_codes, np.int64).reshape(
+                       -1, cfg.channels) for r in requests]
+        p_frames = [int(x.shape[0]) for x in prompts]
+    st = ar.state_for(models.dia, b, models.keep_logits, models.dtype,
+                      params)
+    steps = ar.begin(st, prompts, frames, [r.seed for r in requests], keep,
+                     cfg)
+
+    with profiling.span("dia.encode", rows=2 * b, text_width=cfg.text_length,
+                        text_lengths=valid.sum(1).tolist()):
+        ids_t = torch.from_numpy(ids).to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
+        st.text_valid.copy_(torch.cat([valid_t, valid_t]))
+        enc = dia.encode(models.dia, torch.cat([ids_t, torch.zeros_like(
+            ids_t)]), st.text_valid)
+        dia.cross_kv(models.dia, enc, st.k_cross, st.v_cross)
+        del enc
+        _sync(dev)
+    with profiling.span("dia.prefill", rows=2 * b, prompt_frames=p_frames):
+        ar.run_prefill(models.dia, st, max(p_frames))
+        _sync(dev)
+    with profiling.span("dia.decode", rows=2 * b, steps=steps,
+                        cache_capacity=st.capacity, attn_bucket=st.bucket,
+                        frames=frames):
+        ar.generate(models.dia, st, steps, max(p_frames), params)
+        _sync(dev)
+    with profiling.span("dia.codes"):
+        codes = ar.undelay(st.tokens, st.start, max(frames), st.delay)
+        codes_host = codes.cpu().numpy()
+        logits = {i: st.keep_logits[k, :, :frames[i] + cfg.max_delay].clone()
+                  for k, i in enumerate(keep)}
+
+    hop = models.dac_cfg.hop_length
+    audio: List[np.ndarray] = []
+    for i in range(0, b, decode_batch):
+        n = min(decode_batch, b - i)
+        with profiling.span("batch.decode", rows=n):
+            width = max(frames[i:i + n])
+            lens = torch.tensor(frames[i:i + n], device=dev)
+            out = dac44_decode_codes(
+                models.dac, codes[i:i + n, :width].transpose(1, 2), lens)
+            audio.extend(out.cpu().numpy())
+    with profiling.span("batch.crop"):
+        return [BatchResult(audio=audio[i][None, :frames[i] * hop],
+                            normalized_text=texts[i],
+                            request_id=r.request_id,
+                            codes=codes_host[i, :frames[i]],
+                            logits=logits.get(i))
+                for i, r in enumerate(requests)]

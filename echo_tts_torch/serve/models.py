@@ -10,6 +10,13 @@ W8A8 DiT (`ops.quant.quantize_dit`): the mode changes only the modules,
 never a code path downstream.  The codec's decoder snake follows the
 device unless ECHO_SNAKE_APPROX says otherwise (`_serving_dac_config`);
 a bundle keeps the snake it was saved with.
+
+`architecture="dia"` serves Dia-1.6B instead (models/dia.py DiaModels:
+the encoder-decoder, Descript's DAC 44 kHz, the frame loop of
+sampler/ar.py), through the same server and run_batch.  Only its seeded
+random weights exist here (`allow_random=True`): the loader of the
+published Dia and DAC safetensors waits until those files are in the
+repository.
 """
 from __future__ import annotations
 
@@ -32,7 +39,9 @@ log = logging.getLogger("echo_tts_torch.serve")
 
 _CACHE_LOCK = threading.Lock()
 _MODELS: Optional[EchoModels] = None
-_MODELS_KEY = None  # (model_dir, dtype, random, quant_mode, device, snake)
+# (architecture, model_dir, dtype, random, quant_mode, device, snake)
+_MODELS_KEY = None
+ARCHITECTURES = ("echo", "dia")
 
 
 def _serving_dac_config(device: torch.device) -> DACConfig:
@@ -60,19 +69,24 @@ def _dit_quant_mode() -> str:
 
 
 def load_models(model_dir: Optional[str] = None, device="cuda",
-                dtype=torch.bfloat16, allow_random: bool = False) -> EchoModels:
+                dtype=torch.bfloat16, allow_random: bool = False,
+                architecture: str = "echo"):
     """Load (once) and cache the model bundle (reference:
-    handler.py:323-423).  A later call that asks for another directory,
-    dtype, quant mode, device or decoder snake raises rather than serve
-    the cached bundle; call clear_models() to swap.  Raises without CUDA
-    unless device='cpu'."""
+    handler.py:323-423): an EchoModels, or with architecture="dia" a
+    DiaModels.  A later call that asks for another architecture,
+    directory, dtype, quant mode, device or decoder snake raises rather
+    than serve the cached bundle; call clear_models() to swap.  Raises
+    without CUDA unless device='cpu'."""
     global _MODELS, _MODELS_KEY
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"architecture {architecture!r}: expected one of "
+                         f"{ARCHITECTURES}")
     device = resolve_device(device)
     use_random = not (model_dir and os.path.isdir(model_dir))
     quant_mode = _dit_quant_mode()
     dac_cfg = _serving_dac_config(device)
-    key = (None if use_random else model_dir, str(dtype), use_random,
-           quant_mode, str(device), dac_cfg.snake_approx)
+    key = (architecture, None if use_random else model_dir, str(dtype),
+           use_random, quant_mode, str(device), dac_cfg.snake_approx)
     with _CACHE_LOCK:
         if _MODELS is not None:
             if key != _MODELS_KEY:
@@ -81,6 +95,12 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
                     f"serve them for {key}: call clear_models() first")
             return _MODELS
         t0 = time.time()
+        if architecture == "dia":
+            models = _load_dia(model_dir, use_random, allow_random, device,
+                               dtype, dac_cfg.snake_approx, quant_mode)
+            _MODELS, _MODELS_KEY = models, key
+            log.info("models ready in %.1fs", time.time() - t0)
+            return _MODELS
         if not use_random and is_bundle(model_dir):
             models = load_checkpoint(model_dir, device, dtype)
             log.info("loaded the checkpoint bundle in %.1fs", time.time() - t0)
@@ -104,6 +124,29 @@ def load_models(model_dir: Optional[str] = None, device="cuda",
         return _MODELS
 
 
+def _load_dia(model_dir, use_random: bool, allow_random: bool, device,
+              dtype, snake_approx: bool, quant_mode: str):
+    """The Dia bundle: seeded random weights in the development mode; the
+    published weights' loader waits for the files (module docstring)."""
+    from ..config import dac44k_config
+    from ..models.dia import random_dia_models
+    if quant_mode != "none":
+        raise ValueError("Dia serves bf16 only (ECHO_DIT_QUANT must be "
+                         "'none')")
+    if not use_random:
+        raise NotImplementedError(
+            "the loader of Dia's and DAC's published safetensors waits until "
+            "those files are in the repository; serve random weights with "
+            "allow_random=True")
+    if not allow_random:
+        raise FileNotFoundError(
+            f"model dir not found: {model_dir!r}; Dia serves random weights "
+            "with allow_random=True")
+    log.warning("Dia with RANDOM weights (dev mode)")
+    return random_dia_models(device, dtype,
+                             dac_cfg=dac44k_config(snake_approx=snake_approx))
+
+
 def models_loaded() -> bool:
     return _MODELS is not None
 
@@ -116,6 +159,8 @@ def served_quant_mode() -> str:
         m = _MODELS
     if m is None:
         return _dit_quant_mode()
+    if not isinstance(m, EchoModels):
+        return "none"                   # Dia serves bf16 only
     return "int8" if dit_is_quantized(m.dit) else "none"
 
 

@@ -10,7 +10,7 @@ issues one call where it issued thousands of kernel launches.
 
 A `ProgramCache` holds the programs of one kind (the Euler sampler, the
 codec's encode, its decode, the bench's stages, the train and distill
-steps), least recently used first, up to its bound.  Each program
+steps, Dia's frame step), least recently used first, up to its bound.  Each program
 belongs to an owner, the object whose tensors its graph reads (the DiT,
 the codec, a train state), or to a tuple of owners (a distill step reads
 its student's train state and its frozen teacher in place: copying the
